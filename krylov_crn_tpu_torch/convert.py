@@ -1,10 +1,11 @@
-"""Carry the JAX package's Gram data and solver state across to the port.
+"""Carry the JAX package's data and solver states across to the port.
 
-Both functions take objects whose leaves are numpy arrays — a
-``krylov_crn_tpu`` ``GramData`` or ``GramKrylovState`` after
-``jax.device_get`` — and return the port's counterparts as tensors on
-``device``. With them a test runs the same step from the same state on
-both sides. This module does not import jax; it reads attributes only.
+Each function takes an object whose leaves are numpy arrays — a
+``krylov_crn_tpu`` ``GramData``, ``GramKrylovState``, ``KrylovState`` or
+``CRNState`` after ``jax.device_get`` — and returns the port's
+counterpart as tensors on ``device``. With them a test runs the same step
+from the same state on both sides. This module does not import jax; it
+reads attributes only.
 """
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import torch
 
 from krylov_crn_tpu_torch.config import resolve_device
 from krylov_crn_tpu_torch.ops.gram import GramData
+from krylov_crn_tpu_torch.solvers.crn import CRNState
+from krylov_crn_tpu_torch.solvers.krylov_crn import KrylovState
 from krylov_crn_tpu_torch.solvers.krylov_gram import GramKrylovState
 
-__all__ = ["gram_data_from_numpy", "state_from_numpy"]
+__all__ = ["gram_data_from_numpy", "state_from_numpy",
+           "krylov_state_from_numpy", "crn_state_from_numpy"]
 
 
 def _tensor(a, device):
@@ -33,11 +37,24 @@ def gram_data_from_numpy(gd, device=None) -> GramData:
         n=int(gd.n), d=int(gd.d), nnz=int(gd.nnz))
 
 
+def _state(cls, st, device):
+    dev = resolve_device(device)
+    fields = {f: _tensor(getattr(st, f), dev) for f in cls._fields}
+    fields["solver_it"] = fields["solver_it"].to(torch.int64)
+    return cls(**fields)
+
+
 def state_from_numpy(st, device=None) -> GramKrylovState:
     """The port's GramKrylovState from the leaves of a JAX
     ``GramKrylovState`` (same field names; solver_it becomes int64)."""
-    dev = resolve_device(device)
-    fields = {f: _tensor(getattr(st, f), dev)
-              for f in GramKrylovState._fields}
-    fields["solver_it"] = fields["solver_it"].to(torch.int64)
-    return GramKrylovState(**fields)
+    return _state(GramKrylovState, st, device)
+
+
+def krylov_state_from_numpy(st, device=None) -> KrylovState:
+    """The port's d-space KrylovState from a JAX ``KrylovState``."""
+    return _state(KrylovState, st, device)
+
+
+def crn_state_from_numpy(st, device=None) -> CRNState:
+    """The port's CRNState from a JAX ``CRNState``."""
+    return _state(CRNState, st, device)

@@ -1,64 +1,292 @@
-"""Logistic regression as the host-side holder the Gram path reads.
+"""Logistic-regression oracle.
 
-    f(x) = mean((1-b) * Ax - logsig(Ax)) + l2/2 ||x||^2
+    f(x)  = mean((1-b) * Ax - logsig(Ax)) + l2/2 ||x||^2
+    g(x)  = A^T (sigma(Ax) - b) / n + l2 x
+    H(x)  = A^T diag(w) A / n + l2 I,   w = sigma(Ax) (1 - sigma(Ax))
+    Hv    = A^T (w * (A v)) / n + l2 v          (never materializes H)
 
-The Gram solver never evaluates f through the oracle: it builds K = A A^T
-from the host scipy matrix and evaluates exact values on the host in
-fp64. So this holds the scipy CSR matrix, the canonicalized {0,1} labels
-in the storage dtype, l2 and the shape. The device oracle (value,
-gradient, HVP) of ``krylov_crn_tpu/models/logistic.py`` is not ported yet.
+Port of ``krylov_crn_tpu/models/logistic.py`` (single device; the
+coordinate partials of SSCN are not ported yet). Two layers, as there:
+
+* a **functional core** of module-level functions on the ``DualSparse``
+  data; the d-space solvers thread the margins ``Ax`` through their state;
+* the **class** with the reference's oracle surface (``value`` with the
+  running-best f_opt, ``gradient``, ``hessian``, ``hess_vec_prod``, the
+  ``mat_vec_product`` cache, ``reset``) and the smoothness constants.
+
+The class also keeps the host scipy matrix ``A_host`` and the labels as a
+host array ``b``: the Gram solver builds K and evaluates exact values from
+them and never touches the device data, which is built lazily on first
+use of ``.data`` on the oracle's ``device``.
+
+Reductions accumulate in the storage dtype: compensated two-float pairs
+in fp32 (``ops/math.py``), fp64 in fp64 runs.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import scipy.sparse as sp
+import torch
 
+from krylov_crn_tpu_torch.config import as_torch_dtype, resolve_device
+from krylov_crn_tpu_torch.data.formats import DualSparse, build_dual
 from krylov_crn_tpu_torch.data.libsvm import canonicalize_labels
 from krylov_crn_tpu_torch.models.base import Oracle
+from krylov_crn_tpu_torch.ops.math import (
+    accum_dot,
+    accum_sum_pair,
+    logsig,
+    sigmoid,
+    two_sum,
+)
+from krylov_crn_tpu_torch.ops.spmv import (
+    hvp_sparse,
+    rmatvec,
+    row_sqnorms,
+    spmv,
+)
 
-__all__ = ["LogisticRegression"]
+__all__ = ["LogisticRegression", "logreg_value_from_margins",
+           "logreg_value", "logreg_gradient_from_margins",
+           "logreg_gradient", "hessian_weights", "logreg_hvp",
+           "logreg_hessian_dense"]
 
+
+# ------------------------------ functional core ------------------------------
+
+def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
+                              n: int | None = None):
+    """f from cached margins as a two-float (hi, lo) pair. Terms are
+    scaled by 1/n before the reduction, so per-term rounding enters at
+    eps*|term|/n; in fp64 the pair is a compensated fp64 sum."""
+    adt = Ax.dtype
+    terms = (1.0 - b) * Ax - logsig(Ax)
+    if mask is not None:
+        terms = terms * mask
+    if n is None:
+        n = Ax.shape[0]
+    hi, lo = accum_sum_pair(terms.to(adt) / n, adt)
+    if l2:
+        t = (l2 / 2.0) * accum_dot(x, x, adt).to(adt)
+        hi, e = two_sum(hi, t)
+        lo = lo + e
+    return hi, lo
+
+
+def logreg_value(data: DualSparse, b, x, l2: float = 0.0):
+    """(f(x), Ax)."""
+    Ax = spmv(data, x)
+    hi, lo = logreg_value_from_margins(b, Ax, x, l2, n=data.n)
+    return hi + lo, Ax
+
+
+def logreg_gradient_from_margins(data: DualSparse, b, Ax, x,
+                                 l2: float = 0.0):
+    g = rmatvec(data, sigmoid(Ax) - b) / data.n
+    if l2:
+        g = g + l2 * x
+    return g
+
+
+def logreg_gradient(data: DualSparse, b, x, l2: float = 0.0):
+    """(g(x), Ax)."""
+    Ax = spmv(data, x)
+    return logreg_gradient_from_margins(data, b, Ax, x, l2), Ax
+
+
+def hessian_weights(Ax, mask=None):
+    a = sigmoid(Ax)
+    w = a * (1.0 - a)
+    if mask is not None:
+        w = w * mask
+    return w
+
+
+def logreg_hvp(data: DualSparse, Ax, v, l2: float = 0.0):
+    """Exact HVP from cached margins (two products; loss.py:289-302)."""
+    return hvp_sparse(data, hessian_weights(Ax), v, l2=l2)
+
+
+def logreg_hessian_dense(data: DualSparse, Ax, l2: float = 0.0):
+    """Dense Hessian for the small-d "full" solver (loss.py:249-255);
+    needs the dense copy of A."""
+    if data.dense is None:
+        raise ValueError("dense Hessian requires DualSparse built with "
+                         "want_dense=True (small-d problems)")
+    w = hessian_weights(Ax)
+    H = (data.dense * w[:, None]).T @ data.dense / data.n
+    if l2:
+        H = H + l2 * torch.eye(data.d, dtype=H.dtype, device=H.device)
+    return H
+
+
+def _sigma_max(normal, v, tol: float = 1e-12, it_max: int = 10000) -> float:
+    """Largest singular value of A by power iteration on the normal
+    operator ``normal(v) = A^T A v`` from the unit vector ``v`` (a host
+    numpy array or a tensor on the data's device), stopping when the
+    Rayleigh quotient sigma^2 changes by less than ``tol`` relative."""
+    norm = torch.linalg.norm if torch.is_tensor(v) else np.linalg.norm
+    sig2_prev = 0.0
+    for _ in range(it_max):
+        w = normal(v)
+        sig2 = float(norm(w))
+        v = w / sig2
+        if abs(sig2 - sig2_prev) <= tol * max(sig2, 1e-300):
+            break
+        sig2_prev = sig2
+    return float(np.sqrt(sig2))
+
+
+# ---------------------------------- class -----------------------------------
 
 class LogisticRegression(Oracle):
-    def __init__(self, A, b, dtype=np.float32, *args, **kwargs):
+    """The reference's logistic oracle over the functional core."""
+
+    def __init__(self, A, b, dtype=np.float32, device=None,
+                 store_mat_vec_prod=True, want_dense=None, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.dtype = np.dtype(dtype)
+        self.device = resolve_device(device)
         self.A_host = (A.tocsr() if sp.issparse(A)
                        else sp.csr_matrix(np.asarray(A)))
         self.b = canonicalize_labels(np.asarray(b)).astype(self.dtype)
         self.n, self.dim = map(int, self.A_host.shape)
-        self._hessian_lipschitz = None
+        self.store_mat_vec_prod = store_mat_vec_prod
+        self._want_dense = want_dense
+        self._data = None
+        self._b_t = None
+        self.reset()
+
+    @property
+    def data(self) -> DualSparse:
+        """Device data (A, A^T and the small-d dense copies), built on
+        first use."""
+        if self._data is None:
+            self._data = build_dual(self.A_host, dtype=self.dtype,
+                                    device=self.device,
+                                    want_dense=self._want_dense)
+        return self._data
+
+    @property
+    def b_t(self) -> torch.Tensor:
+        """The labels as a tensor on the oracle's device."""
+        if self._b_t is None:
+            self._b_t = torch.from_numpy(self.b).to(self.device)
+        return self._b_t
+
+    def vec(self, x) -> torch.Tensor:
+        """``x`` as a tensor of the oracle's dtype on its device."""
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        return t.to(self.device, as_torch_dtype(self.dtype))
+
+    # ---- margins cache (parity with loss.py:266-286) ----
+    def mat_vec_product(self, x):
+        x = self.vec(x)
+        if self.store_mat_vec_prod and (
+            self.reuse or (self.x_last is not None and (
+                x is self.x_last or self.is_equal(x, self.x_last)))
+        ):
+            return self._mat_vec_prod
+        Ax = spmv(self.data, x)
+        if self.store_mat_vec_prod:
+            self._mat_vec_prod = Ax
+            self.x_last = x
+        return Ax
+
+    def reset(self):
+        self.reuse = False
+        self.x_last = None
+        self._mat_vec_prod = None
+
+    # ---- oracle surface ----
+    def _value(self, x):
+        x = self.vec(x)
+        Ax = self.mat_vec_product(x)
+        hi, lo = logreg_value_from_margins(self.b_t, Ax, x, l2=self.l2,
+                                           n=self.n)
+        # the pair combined on the host: full precision in fp32 runs too
+        return float(hi) + float(lo)
+
+    def gradient(self, x):
+        x = self.vec(x)
+        Ax = self.mat_vec_product(x)
+        return logreg_gradient_from_margins(self.data, self.b_t, Ax, x,
+                                            l2=self.l2)
+
+    def hessian(self, x):
+        Ax = self.mat_vec_product(x)
+        return logreg_hessian_dense(self.data, Ax, l2=self.l2)
+
+    def hess_vec_prod(self, x, v, grad_dif=False, eps=None):
+        """Exact HVP from cached margins, or the finite-difference
+        gradient-difference fallback (loss.py:289-293) with
+        ``grad_dif=True`` and step ``eps``."""
+        x, v = self.vec(x), self.vec(v)
+        if grad_dif:
+            if eps is None:
+                raise ValueError("grad_dif HVP requires an eps step size")
+            return (self.gradient(x + eps * v) - self.gradient(x)) / eps
+        Ax = self.mat_vec_product(x)
+        return logreg_hvp(self.data, Ax, v, l2=self.l2)
+
+    # ---- smoothness constants (loss.py:308-347) ----
+    @property
+    def smoothness(self):
+        if self._smoothness is None:
+            if self.dim > 20000 and self.n > 20000:
+                warnings.warn(
+                    "The matrix is too large to estimate the smoothness "
+                    "constant, so Frobenius estimate is used instead.")
+                vals = self.data.a.values().to(torch.float32)
+                fro2 = float(torch.sum(vals * vals))
+                self._smoothness = 0.25 * fro2 / self.n + self.l2
+            else:
+                data = self.data
+                v0 = torch.full((data.d,), 1.0 / np.sqrt(data.d),
+                                dtype=data.dtype, device=data.device)
+                smax = _sigma_max(lambda v: rmatvec(data, spmv(data, v)), v0)
+                self._smoothness = 0.25 * smax**2 / self.n + self.l2
+        return self._smoothness
+
+    @property
+    def max_smoothness(self):
+        if self._max_smoothness is None:
+            mx = float(torch.max(row_sqnorms(self.data.a)))
+            self._max_smoothness = 0.25 * mx + self.l2
+        return self._max_smoothness
+
+    @property
+    def average_smoothness(self):
+        if self._ave_smoothness is None:
+            av = float(torch.sum(row_sqnorms(self.data.a))) / self.n
+            self._ave_smoothness = 0.25 * av + self.l2
+        return self._ave_smoothness
 
     @property
     def hessian_lipschitz(self):
         """||A||^2 / (6 sqrt(3) n) * max_i ||a_i||, as in the JAX package
-        (reference loss.py:343-347), computed on the host: the smoothness
-        term uses the Frobenius estimate when both n and d exceed 20000,
-        else the largest singular value by power iteration."""
+        (reference loss.py:343-347), computed on the host in fp64 from
+        ``A_host`` (the Gram path never builds the device data): the
+        Frobenius estimate when both n and d exceed 20000, else the
+        largest singular value by power iteration."""
         if self._hessian_lipschitz is None:
             A = self.A_host.astype(np.float64)
             row_sq = np.asarray(A.multiply(A).sum(axis=1)).ravel()
             if self.dim > 20000 and self.n > 20000:
                 sq_norm = float(row_sq.sum())
             else:
-                sq_norm = _sigma_max(A) ** 2
+                d = A.shape[1]
+                sq_norm = _sigma_max(lambda v: A.T @ (A @ v),
+                                     np.full(d, 1.0 / np.sqrt(d))) ** 2
             a_max = float(np.sqrt(row_sq.max()))
             self._hessian_lipschitz = (sq_norm / self.n) * a_max \
                 / (6 * np.sqrt(3))
         return self._hessian_lipschitz
 
-
-def _sigma_max(A, tol: float = 1e-12, it_max: int = 10000) -> float:
-    """Largest singular value of A by power iteration on A^T A, stopping
-    when the Rayleigh quotient changes by less than ``tol`` relative."""
-    v = np.full(A.shape[1], 1.0 / np.sqrt(A.shape[1]))
-    sig2_prev = 0.0
-    for _ in range(it_max):
-        w = A.T @ (A @ v)
-        sig2 = float(np.linalg.norm(w))
-        v = w / sig2
-        if abs(sig2 - sig2_prev) <= tol * max(sig2, 1e-300):
-            break
-        sig2_prev = sig2
-    return float(np.sqrt(sig2))
+    @staticmethod
+    def density(x):
+        x = np.asarray(x)
+        return 0.0 if x.size == 0 else float((x != 0).sum()) / x.size
