@@ -43,9 +43,30 @@ Phases (each raises on failure, so the exit code is non-zero):
             bitwise), against the port's fp64 CPU run of the same 10
             iterations: the fp64-evaluated loss of the last iterate within
             1e-6 relative;
-10. measure the ported tools/measure_matvec.py rows at n = 20480.
+10. measure the ported tools/measure_matvec.py rows at n = 20480;
+11. cli_gram the port's CLI run grid (cli.run_grid) on the rcv1-like stand-in
+            at full width, fp32 on the card: GramCRN (tolerance 1e-8), SSCN
+            m=500 and GramKrylov run_fused, 14 iterations each. Requires
+            GramCRN's certified exact gap (against phase 4's f*) <= 1e-8
+            within 14 iterations, exact values that never increase, and
+            every K-matvec on the card launched through the SYMV kernel;
+            prints GramCRN's seconds, CG iterations, host reads and
+            rollbacks per iteration, and SSCN's gap beside the JAX
+            package's m=500 curve (printed, not gated: other coordinates);
+12. sscn    SSCN m=500 on rcv1-like (CSR data, column panels) for 20
+            iterations: fp32 on the card twice and fp64 on the CPU, one
+            generator seed. The card runs must agree bitwise, and the fp64
+            loss of the last card iterate must be within 1e-6 relative of
+            the CPU run's;
+13. cli_dense cli.run_grid on the w8a-like stand-in (d-space path): CRN
+            "full", SSCN m=10 and CubicKrylov, 20 iterations. Requires every
+            dense-branch product on the card launched through the matvec
+            kernel and CRN's final fp64 gap <= 1e-9 against the JAX
+            package's optimum.
 
-Prints a JSON line of kernel records, then a last line
+The kernel records count the launches of every phase that drives a
+solver (each phase resets the counts just before and reads them just
+after). Prints a JSON line of kernel records, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -70,6 +91,8 @@ RISE_TOL = 1e-12  # fp64 re-evaluation of fp32 iterates
 W8A_F_STAR = 0.5962522636038963
 F_STAR_TOL = 1e-11
 SPARSE_REL_TOL = 1e-6
+CLI_GRAM_ITS = 14
+SSCN_ITS = 20
 
 
 def _symmetric(n, gen, device):
@@ -475,6 +498,212 @@ def phase_measure():
     return rows
 
 
+def _reset_counts():
+    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    from krylov_crn_tpu_torch.ops.matvec import matvec
+    from krylov_crn_tpu_torch.ops.spmv import dense_matvec
+    from krylov_crn_tpu_torch.ops.symv import symv
+
+    symv.launches = k_matvec.cuda_calls = 0
+    matvec.launches = dense_matvec.cuda_calls = 0
+
+
+def _counts():
+    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    from krylov_crn_tpu_torch.ops.matvec import matvec
+    from krylov_crn_tpu_torch.ops.spmv import dense_matvec
+    from krylov_crn_tpu_torch.ops.symv import symv
+
+    return dict(symv=symv.launches, kmatvec_calls=k_matvec.cuda_calls,
+                matvec=matvec.launches, dense_calls=dense_matvec.cuda_calls)
+
+
+def _jax_sscn_curve(m):
+    """The JAX package's fp32 SSCN exact gaps on rcv1-like (the Figure-2
+    artifact, recorded on a TPU; counts only), or None without it."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "figure2", "rcv1-like.json")
+    try:
+        with open(path) as fh:
+            art = json.load(fh)
+        c = art["legs"]["tpu-fp32"]["curves"][f"SSCN (m={m})"]
+        return [f - art["f_star"] for f in c["exact_fs"]]
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def phase_cli_gram(f_star):
+    """The CLI's run grid on rcv1-like, on the card, at full width."""
+    import torch
+
+    from krylov_crn_tpu_torch import cli
+
+    args = cli.build_parser().parse_args([
+        "--dataset", "rcv1_train.binary", "--synthetic",
+        "--it_max", str(CLI_GRAM_ITS), "--time_max", "100000",
+        "--SSCN_dim", "500", "--no-bench-run"])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    grid = cli.run_grid(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cnt = _counts()
+    crn, sscn, kry = grid.crn, grid.sscn[0], grid.krylov
+    if type(crn).__name__ != "GramCRN" or not grid.use_gram:
+        raise RuntimeError(f"cli_gram ran {type(crn).__name__}, not GramCRN")
+    m = crn.trace.metrics
+    its, fs = list(m["exact_its"]), [float(v) for v in m["exact_fs"]]
+    gaps = [f - f_star for f in fs]
+    cross = next((it for it, g in zip(its, gaps) if g <= GAP), None)
+    ts = list(crn.trace.ts)
+    per_it = (ts[-1] / crn.it) if crn.it else float("nan")
+    print(f"cli_gram: run_grid {secs:.3f} s; GramCRN {crn.it} iterations in "
+          f"{ts[-1]:.3f} s ({per_it:.3f} s per iteration)")
+    it_to_t = dict(zip(crn.trace.its, ts))
+    it_secs = [it_to_t.get(i, np.nan) - it_to_t.get(i - 1, np.nan)
+               for i in range(1, crn.it + 1)]
+    for i, (g, cg, rd) in enumerate(zip(gaps, m["cg_its"],
+                                        m["host_reads"]), 1):
+        print(f"cli_gram: GramCRN it {i}: {it_secs[i - 1]:.3f} s, exact gap "
+              f"{g:.3e}, CG iterations {cg}, host reads {rd}")
+    print(f"cli_gram: GramCRN crossing at iteration {cross}; final gap "
+          f"{gaps[-1]:.3e}; rollbacks {m.get('rollback_its', [])}; "
+          f"solver_it {int(crn.state.solver_it)}")
+    sv = np.asarray(sscn.trace.loss_vals, np.float64)
+    s_gap = float(sv[-1]) - f_star
+    jax_curve = _jax_sscn_curve(500)
+    jax_gap = (jax_curve[sscn.it] if jax_curve and sscn.it < len(jax_curve)
+               else None)
+    print(f"cli_gram: SSCN m=500 {sscn.it} iterations in "
+          f"{sscn.trace.ts[-1]:.3f} s, gap {s_gap:.4e} (the JAX package's "
+          f"m=500 curve at iteration {sscn.it}: {jax_gap}), solver_it "
+          f"{int(sscn.state.solver_it)}")
+    kv = np.asarray(kry.trace.loss_vals, np.float64)
+    print(f"cli_gram: GramKrylov {kry.it} iterations, exact "
+          f"{kry.trace.metrics['exact_fs'][-1] - f_star:.3e} gap; f* of the "
+          f"grid {grid.f_opt:.17g}")
+    print(f"cli_gram: symv launches {cnt['symv']}, k_matvec calls on the "
+          f"card {cnt['kmatvec_calls']}, matvec launches {cnt['matvec']}")
+    if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
+        raise RuntimeError(f"cli_gram: K-matvecs bypassed the kernel: "
+                           f"{cnt['symv']} launches vs "
+                           f"{cnt['kmatvec_calls']} calls")
+    if cross is None or cross > CLI_GRAM_ITS:
+        raise RuntimeError(f"cli_gram: no certified {GAP} gap within "
+                           f"{CLI_GRAM_ITS} iterations (best {min(gaps):.3e})")
+    if any(f2 > f1 for f1, f2 in zip(fs, fs[1:])):
+        raise RuntimeError(f"cli_gram: GramCRN exact values increased: {fs}")
+    if not (np.all(np.isfinite(sv)) and np.all(np.isfinite(kv))):
+        raise RuntimeError("cli_gram: non-finite SSCN or Krylov losses")
+    return dict(seconds=secs, crn_iterations=crn.it, crn_seconds=ts[-1],
+                crn_s_per_it=per_it, crn_it_seconds=it_secs,
+                crossing_it=cross, exact_gaps=gaps,
+                cg_its=list(m["cg_its"]), host_reads=list(m["host_reads"]),
+                rollback_its=list(m.get("rollback_its", [])),
+                sscn_gap=s_gap, sscn_jax_gap=jax_gap,
+                sscn_seconds=sscn.trace.ts[-1], f_opt=grid.f_opt,
+                launches=cnt["symv"], kmatvec_calls=cnt["kmatvec_calls"])
+
+
+def phase_sscn(dev):
+    """SSCN m=500 on rcv1-like: two fp32 card runs and one fp64 CPU run
+    from one generator seed."""
+    import torch
+
+    from krylov_crn_tpu_torch import SSCN, LogisticRegression
+    from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
+
+    A, b = synthetic_logreg("rcv1-like", seed=0)
+    x0 = np.ones(A.shape[1]) * 0.5
+    runs = {}
+    _reset_counts()
+    for key, dtype, device in (("f32_card", np.float32, dev),
+                               ("f32_card_again", np.float32, dev),
+                               ("f64_cpu", np.float64, "cpu")):
+        loss = LogisticRegression(A, b, dtype=dtype, device=device)
+        if loss.data.dense is not None:
+            raise RuntimeError("rcv1-like must take the CSR branch")
+        alg = SSCN(loss=loss, reg_coef=1e-3, subspace_dim=500, tolerance=0)
+        alg.init_run(x0, 42)
+        alg.initialized = True
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alg.run(x0, it_max=SSCN_ITS)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        x = alg.state.x.cpu().numpy()
+        f = _f64_loss(A, loss.b.astype(np.float64), x)
+        runs[key] = dict(x=alg.state.x, seconds=secs, f=f,
+                         solver_it=int(alg.state.solver_it))
+        print(f"sscn {key}: {SSCN_ITS} iterations in {secs:.3f} s "
+              f"({secs / SSCN_ITS * 1e3:.1f} ms per step), solver_it "
+              f"{runs[key]['solver_it']}, fp64 loss of the last iterate "
+              f"{f:.17g}")
+    cnt = _counts()
+    same = torch.equal(runs["f32_card"]["x"], runs["f32_card_again"]["x"])
+    f64, f32 = runs["f64_cpu"]["f"], runs["f32_card"]["f"]
+    rel = abs(f32 - f64) / abs(f64)
+    print(f"sscn: fp32 card vs fp64 CPU, relative {rel:.3e}; two card runs "
+          f"bitwise equal: {same}; dense products {cnt['dense_calls']}")
+    if not same:
+        raise RuntimeError("sscn: two fp32 card runs differ")
+    if cnt["dense_calls"]:
+        raise RuntimeError("sscn: the CSR path ran dense products")
+    if not rel <= SPARSE_REL_TOL:
+        raise RuntimeError(f"sscn: fp32 card loss {f32!r} vs fp64 CPU "
+                           f"{f64!r}: relative {rel:.3e}")
+    return dict(f64_cpu=f64, f32_card=f32, rel=rel, runs_equal=same,
+                seconds={k: r["seconds"] for k, r in runs.items()},
+                solver_it={k: r["solver_it"] for k, r in runs.items()})
+
+
+def phase_cli_dense():
+    """The CLI's run grid on w8a-like: the d-space path on the card."""
+    import torch
+
+    from krylov_crn_tpu_torch import cli
+
+    args = cli.build_parser().parse_args([
+        "--dataset", "w8a", "--synthetic", "--it_max", "20",
+        "--time_max", "100000", "--SSCN_dim", "10", "--no-bench-run"])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    grid = cli.run_grid(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cnt = _counts()
+    if grid.use_gram or getattr(grid.crn, "cubic_solver", None) != "full":
+        raise RuntimeError("cli_dense must run the d-space path, CRN full")
+    A, b01 = grid.loss.A_host, grid.loss.b.astype(np.float64)
+    gaps = {}
+    for name, alg in (("crn", grid.crn), ("sscn", grid.sscn[0]),
+                      ("krylov", grid.krylov)):
+        gaps[name] = _f64_loss(A, b01, alg.state.x.cpu().numpy()) \
+            - W8A_F_STAR
+        print(f"cli_dense: {name} {alg.it} iterations in "
+              f"{alg.trace.ts[-1]:.3f} s, final fp64 gap {gaps[name]:.3e}")
+    print(f"cli_dense: run_grid {secs:.3f} s; matvec launches "
+          f"{cnt['matvec']}, dense-branch products on the card "
+          f"{cnt['dense_calls']}, symv launches {cnt['symv']}")
+    if not (cnt["matvec"] == cnt["dense_calls"] and cnt["matvec"] > 0):
+        raise RuntimeError(f"cli_dense: dense products bypassed the kernel: "
+                           f"{cnt['matvec']} launches vs "
+                           f"{cnt['dense_calls']} calls")
+    if not gaps["crn"] <= DSPACE_GAP:
+        raise RuntimeError(f"cli_dense: CRN final gap {gaps['crn']:.3e} "
+                           f"above {DSPACE_GAP}")
+    if not all(np.isfinite(g) for g in gaps.values()):
+        raise RuntimeError(f"cli_dense: non-finite gaps {gaps}")
+    return dict(seconds=secs, gaps=gaps, launches=cnt["matvec"],
+                dense_calls=cnt["dense_calls"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON")
@@ -495,18 +724,24 @@ def main(argv=None):
     record["dense"] = phase_dense(dev)
     record["sparse"] = phase_sparse(dev)
     record["measure"] = phase_measure()
+    record["cli_gram"] = phase_cli_gram(record["main"]["f_star"])
+    torch.cuda.empty_cache()
+    record["sscn"] = phase_sscn(dev)
+    record["cli_dense"] = phase_cli_dense()
     kk, mv = record["kernel_on_K"], record["matvec"]
     kernels = {"kernels": [{
         "name": "symv_upper", "route": "cuda",
         "source": "krylov_crn_tpu_torch/csrc/symv.cu",
         "replaces": "krylov_crn_tpu/ops/symv.py:69",
-        "launches": record["main"]["launches"],
+        "launches": (record["main"]["launches"]
+                     + record["cli_gram"]["launches"]),
         "max_abs_err": kk["max_abs_err"], "ms": kk["ms"],
         "plain_ms": kk["plain_ms"]}, {
         "name": "matvec", "route": "cuda",
         "source": "krylov_crn_tpu_torch/csrc/matvec.cu",
         "replaces": "tools/measure_matvec.py:35",
-        "launches": record["dense"]["launches"],
+        "launches": (record["dense"]["launches"]
+                     + record["cli_dense"]["launches"]),
         "max_abs_err": mv["max_abs_err"],
         "ms": min(mv["ms_20480x20480_float32"]),
         "plain_ms": min(mv["plain_ms_20480x20480_float32"])}]}

@@ -1,23 +1,25 @@
 """krylov_crn_tpu_torch — the PyTorch / CUDA port of ``krylov_crn_tpu``.
 
 The cubic-regularized Newton solvers on one NVIDIA H100: the Gram-space
-Krylov solver (fp32 storage with compensated two-float reductions, exact
-host fp64 corrections at chunk boundaries) over the upper-triangle SYMV
-kernel (``csrc/symv.cu``), and the d-space Krylov and full-space CRN
+Krylov CRN and CRN-CG solvers (fp32 storage with compensated two-float
+reductions, exact host fp64 corrections) over the upper-triangle SYMV
+kernel (``csrc/symv.cu``), and the d-space Krylov, full-space CRN and SSCN
 solvers over the dense matvec kernel (``csrc/matvec.cu``) or CSR
 products. Module names mirror the JAX package so each counterpart is easy
 to find:
 
-* ``data``    — numpy-only synthetic generators, label canonicalization,
+* ``cli``     — the experiment driver (``python -m krylov_crn_tpu_torch.cli``);
+* ``data``    — the LIBSVM loader (native C parser built at first use),
+                numpy-only synthetic generators, label canonicalization,
                 and the device format ``DualSparse`` (CSR A and A^T, dense
                 copies for small d);
 * ``ops``     — two-float math, the kernel wrappers (SYMV, matvec), SpMV,
-                Gram data and the K build, Lanczos (Gram-space and
-                d-space), CG, the cubic subproblem solvers;
+                SSCN's column panels, Gram data and the K build, Lanczos
+                (Gram-space and d-space), CG, the cubic subproblem solvers;
 * ``models``  — the logistic-regression oracle;
-* ``solvers`` — the run-loop base, ``GramKrylov``, ``CubicKrylov``,
-                ``CubicNewton``;
-* ``utils``   — ``Trace`` and device timing;
+* ``solvers`` — the run-loop base, ``GramKrylov``, ``GramCRN``,
+                ``CubicKrylov``, ``CubicNewton``, ``SSCN``;
+* ``utils``   — ``Trace``, checkpoints and device timing;
 * ``tools``   — ``measure_matvec``;
 * ``convert`` — carries the JAX package's data and solver states across.
 
@@ -39,6 +41,8 @@ pin_fp32_matmul_precision()
 from krylov_crn_tpu_torch.data.formats import DualSparse  # noqa: E402,F401
 from krylov_crn_tpu_torch.models.logistic import LogisticRegression  # noqa: E402,F401
 from krylov_crn_tpu_torch.solvers.crn import CubicNewton  # noqa: E402,F401
+from krylov_crn_tpu_torch.solvers.crn_gram import GramCRN  # noqa: E402,F401
 from krylov_crn_tpu_torch.solvers.krylov_crn import CubicKrylov  # noqa: E402,F401
 from krylov_crn_tpu_torch.solvers.krylov_gram import GramKrylov  # noqa: E402,F401
+from krylov_crn_tpu_torch.solvers.sscn import SSCN  # noqa: E402,F401
 from krylov_crn_tpu_torch.utils.trace import Trace  # noqa: E402,F401

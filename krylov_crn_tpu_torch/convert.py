@@ -1,8 +1,8 @@
 """Carry the JAX package's data and solver states across to the port.
 
 Each function takes an object whose leaves are numpy arrays — a
-``krylov_crn_tpu`` ``GramData``, ``GramKrylovState``, ``KrylovState`` or
-``CRNState`` after ``jax.device_get`` — and returns the port's
+``krylov_crn_tpu`` ``GramData``, ``GramKrylovState``, ``KrylovState``,
+``CRNState`` or ``SSCNState`` after ``jax.device_get`` — and returns the port's
 counterpart as tensors on ``device``. With them a test runs the same step
 from the same state on both sides. This module does not import jax; it
 reads attributes only.
@@ -18,9 +18,11 @@ from krylov_crn_tpu_torch.ops.gram import GramData
 from krylov_crn_tpu_torch.solvers.crn import CRNState
 from krylov_crn_tpu_torch.solvers.krylov_crn import KrylovState
 from krylov_crn_tpu_torch.solvers.krylov_gram import GramKrylovState
+from krylov_crn_tpu_torch.solvers.sscn import SSCNState
 
 __all__ = ["gram_data_from_numpy", "state_from_numpy",
-           "krylov_state_from_numpy", "crn_state_from_numpy"]
+           "krylov_state_from_numpy", "crn_state_from_numpy",
+           "sscn_state_from_numpy"]
 
 
 def _tensor(a, device):
@@ -46,7 +48,8 @@ def _state(cls, st, device):
 
 def state_from_numpy(st, device=None) -> GramKrylovState:
     """The port's GramKrylovState from the leaves of a JAX
-    ``GramKrylovState`` (same field names; solver_it becomes int64)."""
+    ``GramKrylovState`` (same field names; solver_it becomes int64). The
+    Gram-space CRN carries the same state."""
     return _state(GramKrylovState, st, device)
 
 
@@ -58,3 +61,9 @@ def krylov_state_from_numpy(st, device=None) -> KrylovState:
 def crn_state_from_numpy(st, device=None) -> CRNState:
     """The port's CRNState from a JAX ``CRNState``."""
     return _state(CRNState, st, device)
+
+
+def sscn_state_from_numpy(st, device=None) -> SSCNState:
+    """The port's SSCNState from a JAX ``SSCNState``; its PRNG ``key`` is
+    not carried (the port draws coordinates from a torch.Generator)."""
+    return _state(SSCNState, st, device)

@@ -110,6 +110,10 @@ def build_dual(
     if not sp.issparse(A):
         A = sp.csr_matrix(np.asarray(A))
     A = A.tocsr()
+    if not A.has_canonical_format:
+        # duplicates summed: ops/coords.py scatters each (row, column) once
+        A = A.copy()
+        A.sum_duplicates()
     n, d = A.shape
     At = A.T.tocsr()
     col_counts = np.diff(At.indptr).astype(np.int64)

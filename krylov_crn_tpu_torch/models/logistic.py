@@ -6,7 +6,8 @@
     Hv    = A^T (w * (A v)) / n + l2 v          (never materializes H)
 
 Port of ``krylov_crn_tpu/models/logistic.py`` (single device; the
-coordinate partials of SSCN are not ported yet). Two layers, as there:
+row-sharded branch of the SSCN partials waits for multi-device). Two
+layers, as there:
 
 * a **functional core** of module-level functions on the ``DualSparse``
   data; the d-space solvers thread the margins ``Ax`` through their state;
@@ -35,6 +36,7 @@ from krylov_crn_tpu_torch.config import as_torch_dtype, resolve_device
 from krylov_crn_tpu_torch.data.formats import DualSparse, build_dual
 from krylov_crn_tpu_torch.data.libsvm import canonicalize_labels
 from krylov_crn_tpu_torch.models.base import Oracle
+from krylov_crn_tpu_torch.ops.coords import gather_columns_dense
 from krylov_crn_tpu_torch.ops.math import (
     accum_dot,
     accum_sum_pair,
@@ -52,7 +54,7 @@ from krylov_crn_tpu_torch.ops.spmv import (
 __all__ = ["LogisticRegression", "logreg_value_from_margins",
            "logreg_value", "logreg_gradient_from_margins",
            "logreg_gradient", "hessian_weights", "logreg_hvp",
-           "logreg_hessian_dense"]
+           "logreg_hessian_dense", "logreg_partials"]
 
 
 # ------------------------------ functional core ------------------------------
@@ -123,6 +125,28 @@ def logreg_hessian_dense(data: DualSparse, Ax, l2: float = 0.0):
     return H
 
 
+def logreg_partials(data: DualSparse, b, Ax, x, I, l2: float = 0.0,
+                    k_pad: int | None = None):
+    """Coordinate-subspace gradient, Hessian and column panel for SSCN:
+    (g_I, H_I, B) with B = dense A[:, I] (ops/coords.py) and
+
+        g_I = Bᵀ (sigma(Ax) - b) / n + l2 x_I        (loss.py:234-247)
+        H_I = Bᵀ diag(w) B / n + l2 I_m              (loss.py:257-264)
+
+    B stays in the storage dtype; the products are plain matmuls, as XLA
+    computes them in the JAX package."""
+    B = gather_columns_dense(data, I, k_pad)
+    residual = sigmoid(Ax) - b
+    w = hessian_weights(Ax)
+    g = B.T @ residual / data.n
+    if l2:
+        g = g + l2 * x[I]
+    H = (B * w[:, None]).T @ B / data.n
+    if l2:
+        H = H + l2 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    return g, H, B
+
+
 def _sigma_max(normal, v, tol: float = 1e-12, it_max: int = 10000) -> float:
     """Largest singular value of A by power iteration on the normal
     operator ``normal(v) = A^T A v`` from the unit vector ``v`` (a host
@@ -170,6 +194,15 @@ class LogisticRegression(Oracle):
                                     want_dense=self._want_dense)
         return self._data
 
+    @data.setter
+    def data(self, value: DualSparse):
+        """Share another oracle's device data (same A, dtype and device)
+        instead of building a second copy."""
+        if value.shape != (self.n, self.dim):
+            raise ValueError(f"shared data has shape {value.shape}, this "
+                             f"oracle {(self.n, self.dim)}")
+        self._data = value
+
     @property
     def b_t(self) -> torch.Tensor:
         """The labels as a tensor on the oracle's device."""
@@ -195,6 +228,14 @@ class LogisticRegression(Oracle):
             self._mat_vec_prod = Ax
             self.x_last = x
         return Ax
+
+    def update_mat_vec_product(self, Ax, delta, I):
+        """Incremental margin update Ax += A[:, I] @ delta
+        (loss.py:279-281); the next margins read reuses it."""
+        I = torch.as_tensor(I, dtype=torch.int64, device=self.device)
+        B = gather_columns_dense(self.data, I)
+        self._mat_vec_prod = self.vec(Ax) + B @ self.vec(delta)
+        self.reuse = True
 
     def reset(self):
         self.reuse = False
@@ -231,6 +272,18 @@ class LogisticRegression(Oracle):
             return (self.gradient(x + eps * v) - self.gradient(x)) / eps
         Ax = self.mat_vec_product(x)
         return logreg_hvp(self.data, Ax, v, l2=self.l2)
+
+    def _partials(self, x, I):
+        x = self.vec(x)
+        Ax = self.mat_vec_product(x)
+        I = torch.as_tensor(I, dtype=torch.int64, device=self.device)
+        return logreg_partials(self.data, self.b_t, Ax, x, I, l2=self.l2)
+
+    def partial_gradient(self, x, I):
+        return self._partials(x, I)[0]
+
+    def partial_hessian(self, x, I):
+        return self._partials(x, I)[1]
 
     # ---- smoothness constants (loss.py:308-347) ----
     @property

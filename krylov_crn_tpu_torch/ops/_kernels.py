@@ -1,10 +1,15 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native code (compiler -> shared library -> ctypes).
 
 The sources live in ``krylov_crn_tpu_torch/csrc``. At first use each one is
-compiled with nvcc for ``sm_90a`` into ``krylov_crn_tpu_torch/_build/``
-(listed in .gitignore), under a file name that carries a hash of the
-source and flags, so an edited source never loads a stale library. A
-plain C interface bound with ctypes builds in seconds, where a PyTorch
+compiled into ``krylov_crn_tpu_torch/_build/`` (listed in .gitignore), under
+a file name that carries a hash of the source and flags, so an edited source
+never loads a stale library:
+
+* the CUDA kernels (``*.cu``) with nvcc for ``sm_90a`` (``load_library``);
+* the host C LIBSVM parser (``libsvm_parser.c``) with the host C compiler
+  (``load_host_library``).
+
+A plain C interface bound with ctypes builds in seconds, where a PyTorch
 C++ extension takes minutes to compile.
 
 Nothing here runs at import: the CPU-only test environment has no nvcc.
@@ -21,13 +26,15 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_path", "last_build_seconds"]
+__all__ = ["load_library", "load_host_library", "nvcc_path",
+           "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 last_build_seconds: dict[str, float] = {}
@@ -47,9 +54,7 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _build(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    flags = ARCH_FLAGS + NVCC_FLAGS
+def _build(name: str, src: Path, compiler: str, flags: list[str]) -> Path:
     tag = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()
                        ).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}_{tag}.so"
@@ -61,14 +66,14 @@ def _build(name: str) -> Path:
     # sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *flags, "-o", tmp, str(src)]
+    cmd = [compiler, *flags, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {src.name}:\n"
-                f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+                f"{Path(compiler).name} failed ({res.returncode}) building "
+                f"{src.name}:\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -77,10 +82,23 @@ def _build(name: str) -> Path:
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+def _load(name: str, build) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_build(name)))
+        lib = ctypes.CDLL(str(build()))
         _loaded[name] = lib
     return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``, built with nvcc on first
+    use."""
+    return _load(name, lambda: _build(name, CSRC / f"{name}.cu", nvcc_path(),
+                                      ARCH_FLAGS + NVCC_FLAGS))
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The ctypes handle of the host C source ``csrc/<name>.c``, built
+    with ``$CC`` (default ``cc``) on first use."""
+    return _load(name, lambda: _build(name, CSRC / f"{name}.c",
+                                      os.environ.get("CC", "cc"), CC_FLAGS))

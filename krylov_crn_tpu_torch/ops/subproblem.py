@@ -19,8 +19,25 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["tridiag_eigh", "secular_newton", "CubicSolution",
+__all__ = ["sym_eigh", "tridiag_eigh", "secular_newton", "CubicSolution",
            "cubic_solve_eigh", "cubic_subproblem_eigh", "cubic_solve_cg"]
+
+
+def sym_eigh(H: torch.Tensor):
+    """(theta, Q) of a dense symmetric H (lower triangle), ascending.
+
+    On a card this is cuSOLVER through ``torch.linalg.eigh``. On the CPU it
+    is LAPACK's ``dsyevd``/``ssyevd`` through scipy, the library the JAX
+    package's CPU ``eigh`` calls: torch's CPU build calls MKL's, whose
+    multithreaded divide-and-conquer fails to converge on SSCN Hessians
+    whose sampled columns are mostly empty (446 exact zero rows of 500 on
+    rcv1-like), where scipy's and a one-thread MKL call both succeed."""
+    if H.device.type != "cpu":
+        return torch.linalg.eigh(H)
+    import scipy.linalg
+
+    theta, Q = scipy.linalg.eigh(H.numpy(), lower=True, driver="evd")
+    return torch.from_numpy(theta), torch.from_numpy(Q)
 
 
 class CubicSolution(NamedTuple):
@@ -102,7 +119,7 @@ def cubic_solve_eigh(theta, Q, g, M, r0, xtol: float = 1e-8,
 def cubic_subproblem_eigh(g, H, M, r0=0.1, xtol: float = 1e-8,
                           it_max: int = 100) -> CubicSolution:
     """Dense-H convenience wrapper (factor + solve)."""
-    theta, Q = torch.linalg.eigh(H)
+    theta, Q = sym_eigh(H)
     return cubic_solve_eigh(theta, Q, g, M, r0, xtol=xtol, it_max=it_max)
 
 

@@ -33,6 +33,7 @@ from krylov_crn_tpu_torch.ops.spmv import rmatvec, spmv
 from krylov_crn_tpu_torch.ops.subproblem import (
     cubic_solve_cg,
     cubic_solve_eigh,
+    sym_eigh,
 )
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_crn import initial_state
@@ -120,7 +121,7 @@ def crn_step_full(
     if bool(g_norm < tolerance):
         return _early(state, g_norm)
     H = logreg_hessian_dense(data, state.Ax, l2=l2).to(adt)
-    theta, Q = torch.linalg.eigh(H)  # factor once; O(d) per trial after
+    theta, Q = sym_eigh(H)  # factor once; O(d) per trial after
 
     def trial(reg, r0):
         return cubic_solve_eigh(theta, Q, g.to(adt), reg, r0,

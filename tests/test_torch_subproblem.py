@@ -84,3 +84,19 @@ def test_secular_newton_zero_gradient_is_finite():
                                        r0=0.1)
     assert torch.isfinite(lam).all()
     assert np.all(_steps(theta, Q, c, lam) == 0)
+
+
+def test_sym_eigh_on_cpu_is_the_jax_package_eigh():
+    """On the CPU ``sym_eigh`` calls the LAPACK the JAX package's ``eigh``
+    calls there: the same bits in fp64, also on the shape SSCN hands it,
+    a Hessian whose sampled columns are mostly empty (exact zero rows)."""
+    rng = np.random.default_rng(0)
+    B = rng.standard_normal((300, 120)) * (rng.random((300, 120)) < 0.1)
+    B[:, rng.random(120) < 0.8] = 0.0
+    H = B.T @ (B * rng.random(300)[:, None])
+    H = (H + H.T) / 2
+    theta, Q = ts.sym_eigh(torch.from_numpy(H))
+    jtheta, jQ = jnp.linalg.eigh(jnp.asarray(H))
+    assert theta.dtype == torch.float64
+    np.testing.assert_array_equal(theta.numpy(), np.asarray(jtheta))
+    np.testing.assert_array_equal(Q.numpy(), np.asarray(jQ))
