@@ -18,8 +18,10 @@ Phases (each raises on failure, so the exit code is non-zero):
             same K. Requires a certified exact gap <= 1e-8 within 48
             iterations, non-increasing exact chunk-boundary values, and every
             K-matvec on the card launched through the SYMV kernel;
-5. kernel@K the kernel against plain and fp64 on the built K, and both
-            timed with CUDA events (median of 25 chained calls);
+5. kernel@K the kernel against plain and fp64 on the built K (they differ
+            by less than 1e-6 of the fp64 product's norm), and both timed
+            with CUDA events (median of 25 chained calls); repeated on
+            phase 14's K (n_pad 20224), the other shape SYMV is driven at;
 6. small    an n = 4096 problem in fp32 on the card against the port's fp64
             CPU run (held against the JAX package by the CPU tests): the
             certified fp32 optimum is no more than 1e-8 above the fp64 one;
@@ -37,7 +39,10 @@ Phases (each raises on failure, so the exit code is non-zero):
             gap <= 1e-9 for both, a loss trace that never rises by more
             than 1e-12 (fp64 re-evaluation of fp32 iterates that differ by
             rounding), and every dense-branch product on the card launched
-            through the matvec kernel;
+            through the matvec kernel. The oracle's best fp32 value
+            reading must lie within one fp32 ulp of f*; its offset is
+            printed with its parts (iterate, fp32 margins, fp32 terms),
+            and scaling and summing the terms may move it by 1e-9 at most;
 9. sparse   CubicKrylov(m=10) on the rcv1-like stand-in (CSR branch) for 10
             iterations in fp32 on the card, twice (the two runs must agree
             bitwise), against the port's fp64 CPU run of the same 10
@@ -62,7 +67,32 @@ Phases (each raises on failure, so the exit code is non-zero):
             "full", SSCN m=10 and CubicKrylov, 20 iterations. Requires every
             dense-branch product on the card launched through the matvec
             kernel and CRN's final fp64 gap <= 1e-9 against the JAX
-            package's optimum.
+            package's optimum;
+14. news20  phase 4's protocol and gates on the news20-like stand-in
+            (19,996 x 1,355,191, 8.7M nnz, 22 build panels): generation,
+            build and race seconds, crossing iteration, final gap, chunks,
+            rollbacks and launches are printed;
+15. figure2 the Figure-2 tool's functions (tools/run_figure2.py) on the
+            card: w8a-like whole (grid (100, [10]): CRN "full", Krylov m=10,
+            the 5x-budget m=20 run, SSCN m=10) and news20-like without
+            GramCRN (GramKrylov m=10 for 50 certified iterations on phase
+            14's K, SSCN m=1000 for 50), each merged with nothing. Requires
+            an f_star in each JSON, every certified final gap finite and
+            >= -1e-12, w8a-like's Krylov and CRN final gaps <= 1e-9, its
+            best fp32 value reading within one fp32 ulp of f*, and the
+            products through their kernels;
+16. skew    the K build under heavy column skew: the power-law problem at
+            rcv1's shape (957,861 nnz, 22 panels, the first holding 722,633;
+            skewed by the JAX package's rule nblk * cap > 4 * nnz). K
+            against host A A^T on 4,096 sampled rows (rel <= 1e-5), bitwise
+            symmetric, and one SYMV on it against fp64 and against its
+            plain version;
+17. stress1m the sparse HVP of tools/measure_large_n.py (CSR products; no
+            hand-written kernel on this path): at 100,000 x 100,000 with 10M
+            entries against an fp64 scipy HVP of the arrays copied back (rel
+            <= 1e-5); at 1M x 1M with 100M entries two card HVPs bitwise
+            equal, finite, and u^T (A^T (w * A v)) = (A u)^T (w * A v) within
+            1e-4 relative; prints the tool's JSON row and the bound.
 
 The kernel records count the launches of every phase that drives a
 solver (each phase resets the counts just before and reads them just
@@ -74,7 +104,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -85,6 +114,8 @@ GAP = 1e-8
 SYMV_TOL = 1e-6
 MATVEC_TOL = 1e-6
 DSPACE_GAP = 1e-9
+# the terms' division by n (one rounding each) and their two-float sum
+READING_SUM_TOL = 1e-9
 RISE_TOL = 1e-12  # fp64 re-evaluation of fp32 iterates
 # the JAX package's fp64 optimum of w8a-like (PROBLEM_VERSION 4, seed 0;
 # artifacts/figure2/w8a-like.json, f_star) and the bound on agreeing with it
@@ -93,6 +124,9 @@ F_STAR_TOL = 1e-11
 SPARSE_REL_TOL = 1e-6
 CLI_GRAM_ITS = 14
 SSCN_ITS = 20
+SKEW_K_TOL = 1e-5  # fp32-class error of the panel GEMMs
+STRESS_REL_TOL = 1e-5  # fp32 segment sums of ~100 products against fp64
+STRESS_ADJ_TOL = 1e-4  # fp32 products, both sides summed in fp64
 
 
 def _symmetric(n, gen, device):
@@ -108,23 +142,100 @@ def _rel(y, ref):
     return float(torch.linalg.norm(y.double() - ref) / torch.linalg.norm(ref))
 
 
-def _alternating_ms(kernel, plain, x, reps=25):
-    """plain, kernel, kernel, plain on the same card: lists of the median
-    ms per call (utils/profiling) of each run."""
-    from krylov_crn_tpu_torch.utils.profiling import device_time_per_call
+def _hold_to_plain(tag, y, yp, ref):
+    """max |kernel - plain|; raises unless the kernel's result y and the
+    plain version's yp differ by less than SYMV_TOL of |ref| (the fp64
+    product) in the 2-norm."""
+    import torch
 
-    t = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel if name == "kernel" else plain
-        t[name].append(device_time_per_call(fn, x, reps=reps))
-    return t["kernel"], t["plain"]
+    d = y.double() - yp.double()
+    rel = float(torch.linalg.norm(d) / torch.linalg.norm(ref))
+    if not rel < SYMV_TOL:
+        raise RuntimeError(f"{tag}: symv differs from its plain version by "
+                           f"{rel:.3e} relative (limit {SYMV_TOL})")
+    return float(d.abs().max())
+
+
+# NVIDIA H100 SXM: 67 TFLOP/s in fp32 outside the tensor cores (the
+# published peak at the full 700 W limit; the memory rate, 3.35 TB/s, is
+# utils/profiling.HBM_BYTES_PER_S)
+PEAK_FP32_FLOPS = 67e12
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of bytes over the memory rate and operations over the peak."""
+    from krylov_crn_tpu_torch.utils.profiling import HBM_BYTES_PER_S
+
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def _matvec_bound(n, m, itemsize):
+    """y = K x for K (n, m): K and x read once, y written once; one
+    multiply and one add per entry."""
+    return _bound(n * m * itemsize + 4 * (n + m), 2 * n * m)
+
+
+def _f64_loss_of_margins(b01, m):
+    ls = np.where(m < 0, m - np.log1p(np.exp(m)), -np.log1p(np.exp(-m)))
+    return float(np.mean((1.0 - b01) * m - ls))
 
 
 def _f64_loss(A, b01, x):
     """Exact fp64 loss of an iterate on the host (sparse A)."""
-    m = A @ np.asarray(x, np.float64)
-    ls = np.where(m < 0, m - np.log1p(np.exp(m)), -np.log1p(np.exp(-m)))
-    return float(np.mean((1.0 - b01) * m - ls))
+    return _f64_loss_of_margins(b01, A @ np.asarray(x, np.float64))
+
+
+def _reading_offset(tag, reading, f_star):
+    """An fp32 value reading minus the fp64 optimum, in fp32 ulps of the
+    optimum; raises beyond one ulp. The readings are two-float sums of
+    fp32 terms, so they are no fp32 roundings of the optimum: they carry
+    the terms' evaluation error, a fraction of an ulp, which is why the
+    Figure-2 tool's f* takes certified fp64 values only."""
+    ulp = float(np.spacing(np.float32(f_star)))
+    off = reading - f_star
+    print(f"{tag}: best fp32 value reading {reading:.17g} lies {off:.3e} "
+          f"from the fp64 optimum, {off / ulp:+.3f} fp32 ulp (the optimum "
+          f"rounded to fp32 would lie {float(np.float32(f_star)) - f_star:.3e})")
+    if not abs(off) <= ulp:
+        raise RuntimeError(f"{tag}: fp32 value reading off by {off:.3e}, "
+                           f"more than one fp32 ulp ({ulp:.3e})")
+    return off
+
+
+def _reading_parts(loss, A, b, f_star):
+    """Where an fp32 reading's offset comes from, at the oracle's x_opt
+    on the card: the iterate, the fp32 margins, the fp32 terms, their
+    two-float sum."""
+    from krylov_crn_tpu_torch.models.logistic import (
+        logreg_value_from_margins,
+        logsig,
+    )
+
+    b01 = (np.asarray(b) > 0).astype(np.float64)
+    x = loss.x_opt
+    Ax = loss.mat_vec_product(x)
+    terms = (1.0 - loss.b_t) * Ax - logsig(Ax)
+    hi, lo = logreg_value_from_margins(loss.b_t, Ax, x, n=loss.n)
+    parts = {
+        "fp64 value of x_opt": _f64_loss(A, b01, x.cpu().numpy()),
+        "fp64 value of the card's fp32 margins": _f64_loss_of_margins(
+            b01, Ax.double().cpu().numpy()),
+        "the card's fp32 terms averaged in fp64": float(
+            terms.double().mean()),
+        "the card's two-float reading": float(hi) + float(lo),
+    }
+    print("dense: offsets from the fp64 optimum: " + "; ".join(
+        f"{k} {v - f_star:.3e}" for k, v in parts.items()))
+    lost = (parts["the card's two-float reading"]
+            - parts["the card's fp32 terms averaged in fp64"])
+    if not abs(lost) <= READING_SUM_TOL:
+        raise RuntimeError(f"dense: scaling and summing the fp32 terms "
+                           f"moved the value by {lost:.3e}")
+    return {k: v - f_star for k, v in parts.items()}
 
 
 def _iterates_f64(A, b, trace):
@@ -138,11 +249,9 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    from krylov_crn_tpu_torch.utils.profiling import card_description
+
+    card = card_description()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -181,7 +290,7 @@ def phase_kernel(dev):
         ref = K.double() @ x.double()
         torch.cuda.synchronize()
         rel, rel_plain = _rel(y, ref), _rel(yp, ref)
-        err = float((y - yp).abs().max())
+        err = _hold_to_plain(f"kernel n={n}", y, yp, ref)
         print(f"kernel n={n}: rel err {rel:.3e} (plain {rel_plain:.3e}), "
               f"max |kernel - plain| {err:.3e}")
         if not rel < SYMV_TOL:
@@ -194,7 +303,10 @@ def phase_kernel(dev):
     return out
 
 
-def phase_main(dev):
+def _gram_race(tag, name, dev):
+    """The Gram-space main path on the stand-in ``name``: device K build,
+    the m=10 race with certification, f* from an m=20 run on the same K,
+    and the gates of phases ``main`` and ``news20``."""
     import torch
 
     from krylov_crn_tpu_torch import GramKrylov, LogisticRegression
@@ -203,11 +315,11 @@ def phase_main(dev):
     from krylov_crn_tpu_torch.ops.symv import symv
 
     t0 = time.perf_counter()
-    A, b = synthetic_logreg("rcv1-like", seed=0)
+    A, b = synthetic_logreg(name, seed=0)
+    gen_s = time.perf_counter() - t0
     x0 = np.ones(A.shape[1]) * 0.5
-    print(f"main: rcv1-like {A.shape} nnz {A.nnz} generated in "
-          f"{time.perf_counter() - t0:.2f} s")
-    loss = LogisticRegression(A, b, dtype=np.float32)
+    print(f"{tag}: {name} {A.shape} nnz {A.nnz} generated in {gen_s:.2f} s")
+    loss = LogisticRegression(A, b, dtype=np.float32, device=dev)
     alg = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0,
                      device=dev, label="gram")
 
@@ -237,57 +349,81 @@ def phase_main(dev):
     cross = next((it for it, g in zip(its, gaps) if g <= GAP), None)
     it_to_t = dict(zip(trace.its, trace.ts))
     bfs = list(trace.metrics["boundary_fs"])
-    print(f"main: K build {build_s:.3f} s (n_pad {alg.gd.n_padded}), race "
+    print(f"{tag}: K build {build_s:.3f} s (n_pad {alg.gd.n_padded}), race "
           f"{race_s:.3f} s for {alg.it} iterations, f* run {fstar_s:.3f} s")
-    print(f"main: f* {f_star:.17g}; crossing at iteration {cross} "
+    print(f"{tag}: f* {f_star:.17g}; crossing at iteration {cross} "
           f"(t {it_to_t.get(cross, float('nan')):.3f} s into the race); "
           f"final certified gap {gaps[-1]:.3e}, best {min(gaps):.3e}")
-    print(f"main: boundary exact values {bfs}; rollbacks "
-          f"{trace.metrics['rollback_its']}")
-    print(f"main: symv launches {launches} (race {race_launches}), "
+    print(f"{tag}: boundary exact values {bfs}; rollbacks "
+          f"{trace.metrics['rollback_its']}; chunks "
+          f"{len(bfs) + len(trace.metrics['rollback_its'])}")
+    print(f"{tag}: symv launches {launches} (race {race_launches}), "
           f"k_matvec calls on the card {calls}")
     if not (launches == calls and race_launches > 0):
-        raise RuntimeError(f"K-matvecs bypassed the kernel: {launches} "
-                           f"launches vs {calls} calls")
+        raise RuntimeError(f"{tag}: K-matvecs bypassed the kernel: "
+                           f"{launches} launches vs {calls} calls")
     if cross is None or cross > 48:
-        raise RuntimeError(f"no certified {GAP} gap within 48 iterations "
-                           f"(best {min(gaps):.3e})")
+        raise RuntimeError(f"{tag}: no certified {GAP} gap within 48 "
+                           f"iterations (best {min(gaps):.3e})")
     if any(b2 > b1 for b1, b2 in zip(bfs, bfs[1:])):
-        raise RuntimeError(f"exact boundary values increased: {bfs}")
+        raise RuntimeError(f"{tag}: exact boundary values increased: {bfs}")
     lv = np.asarray(trace.loss_vals)
     if lv.shape != (alg.it + 1,) or not np.all(np.isfinite(lv)):
-        raise RuntimeError(f"bad loss trace: shape {lv.shape}")
-    return alg, dict(build_s=build_s, race_s=race_s, fstar_s=fstar_s,
-                     iterations=alg.it, crossing_it=cross,
+        raise RuntimeError(f"{tag}: bad loss trace: shape {lv.shape}")
+    return alg, dict(gen_s=gen_s, build_s=build_s, race_s=race_s,
+                     fstar_s=fstar_s, iterations=alg.it, crossing_it=cross,
                      crossing_t=it_to_t.get(cross), f_star=f_star,
                      final_gap=gaps[-1], best_gap=min(gaps),
                      exact_fs=fs, boundary_fs=bfs, launches=launches,
                      race_launches=race_launches, kmatvec_calls=calls)
 
 
-def phase_kernel_on_K(dev, K):
+def phase_main(dev):
+    return _gram_race("main", "rcv1-like", dev)
+
+
+def phase_news20(dev):
+    """The news20-like stand-in (19,996 x 1,355,191, 22 build panels):
+    the same protocol and gates as ``main`` at d = 1.36M."""
+    return _gram_race("news20", "news20-like", dev)
+
+
+def phase_kernel_on_K(dev, K, tag="rcv1-like"):
+    """SYMV against its plain version, fp64 and ``torch.mv`` on a K that
+    a driven path built (``tag`` names the path's problem), with times."""
     import torch
 
     from krylov_crn_tpu_torch.ops.symv import symv, symv_plain
+    from krylov_crn_tpu_torch.utils.profiling import (
+        alternating_ms,
+        device_time_per_call,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand(K.shape[0], generator=gen, device=dev)
     y, yp = symv(K, x), symv_plain(K, x)
     ref = K.double() @ x.double()
     rel, rel_plain = _rel(y, ref), _rel(yp, ref)
-    err = float((y - yp).abs().max())
+    err = _hold_to_plain(f"kernel@K {tag}", y, yp, ref)
     if not rel < SYMV_TOL:
-        raise RuntimeError(f"symv rel err {rel:.3e} on the built K")
-    kms, pms = _alternating_ms(lambda v: symv(K, v),
+        raise RuntimeError(f"symv rel err {rel:.3e} on {tag}'s K")
+    kms, pms = alternating_ms(lambda v: symv(K, v),
                                lambda v: symv_plain(K, v), x)
     ms, plain_ms = min(kms), min(pms)
+    library_ms = device_time_per_call(lambda v: torch.mv(K, v), x)
     n = K.shape[0]
-    print(f"kernel@K n={n}: rel err {rel:.3e} (plain {rel_plain:.3e}), max "
-          f"|kernel - plain| {err:.3e}; kernel {kms} ms, torch.mv "
-          f"{pms} ms; kernel reads {n * (n + 64) * 2 / 1e6:.0f} MB "
+    # the function needs the upper 64 x 64 tiles of the symmetric K once,
+    # x once and y once; 2 n^2 operations
+    bound_ms, bound_by = _bound(n * (n + 64) * 2 + 8 * n, 2 * n * n)
+    print(f"kernel@K {tag} n={n}: rel err {rel:.3e} (plain {rel_plain:.3e}), max "
+          f"|kernel - plain| {err:.3e}; kernel {kms} ms, plain K @ x "
+          f"{pms} ms, torch.mv {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({n * (n + 64) * 2 / 1e6:.0f} MB of upper tiles), "
+          f"share {bound_ms / ms:.1%} "
           f"-> {n * (n + 64) * 2 / (ms * 1e-3) / 1e9:.0f} GB/s")
     return dict(rel_err=rel, rel_err_plain=rel_plain, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, ms_runs=kms, plain_ms_runs=pms)
+                ms=ms, plain_ms=plain_ms, ms_runs=kms, plain_ms_runs=pms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_small(dev):
@@ -303,7 +439,7 @@ def phase_small(dev):
     x0 = np.ones(A.shape[1]) * 0.5
     f = {}
     for dtype, device in ((np.float64, "cpu"), (np.float32, dev)):
-        loss = LogisticRegression(A, b, dtype=dtype)
+        loss = LogisticRegression(A, b, dtype=dtype, device=device)
         alg = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10,
                          tolerance=0, device=device)
         tr = alg.run_fused(x0, it_max=64, chunk=16)
@@ -328,6 +464,10 @@ def phase_matvec(dev):
         matvec,
         matvec_plain,
         split_plan,
+    )
+    from krylov_crn_tpu_torch.utils.profiling import (
+        alternating_ms,
+        device_time_per_call,
     )
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -354,10 +494,22 @@ def phase_matvec(dev):
                                      rel_err_plain=rel_plain, max_abs_err=err)
             out["max_abs_err"] = max(out["max_abs_err"], err)
             if n == 20480:
-                kms, pms = _alternating_ms(lambda v: matvec(K, v),
+                kms, pms = alternating_ms(lambda v: matvec(K, v),
                                            lambda v: matvec_plain(K, v), x)
                 out[f"ms_{key}"], out[f"plain_ms_{key}"] = kms, pms
-                print(f"matvec {key}: kernel {kms} ms, plain {pms} ms")
+                # one PyTorch call for the same function: torch.mv in fp32;
+                # on bf16 K with fp32 x it is the plain version's upcast
+                # (torch.mv on bf16 K rounds x and y to bf16: another
+                # function)
+                lib = device_time_per_call(
+                    (lambda v: torch.mv(K, v)) if dtype == torch.float32
+                    else (lambda v: torch.mv(K.float(), v)), x)
+                bound_ms, bound_by = _matvec_bound(n, m, K.element_size())
+                out[f"library_ms_{key}"] = lib
+                out[f"bound_{key}"] = (bound_ms, bound_by)
+                print(f"matvec {key}: kernel {kms} ms, plain {pms} ms, "
+                      f"library {lib:.4f} ms; bound {bound_ms:.4f} ms by "
+                      f"{bound_by}, share {bound_ms / min(kms):.1%}")
             del K
         del K32
     # the solver's operands: w8a-like's padded dense copies of A and A^T
@@ -365,11 +517,17 @@ def phase_matvec(dev):
     for name, M in (("w8a_A", Ad), ("w8a_At", Ad.T)):
         K = padded_dense(M, dev)
         x = torch.randn(K.shape[1], generator=gen, device=dev)
-        kms, pms = _alternating_ms(lambda v: matvec(K, v),
+        kms, pms = alternating_ms(lambda v: matvec(K, v),
                                    lambda v: matvec_plain(K, v), x)
         out[f"ms_{name}"], out[f"plain_ms_{name}"] = kms, pms
+        lib = device_time_per_call(lambda v: torch.mv(K, v), x)
+        bound_ms, bound_by = _matvec_bound(K.shape[0], K.shape[1], 4)
+        out[f"library_ms_{name}"] = lib
+        out[f"bound_{name}"] = (bound_ms, bound_by)
         print(f"matvec {name} {tuple(K.shape)} fp32 (ld {K.stride(0)}): "
-              f"kernel {kms} ms, plain {pms} ms")
+              f"kernel {kms} ms, plain {pms} ms, torch.mv {lib:.4f} ms; "
+              f"bound {bound_ms:.4f} ms by {bound_by}, share "
+              f"{bound_ms / min(kms):.1%}")
     torch.cuda.empty_cache()
     return out
 
@@ -396,7 +554,7 @@ def phase_dense(dev):
     x0 = np.ones(A.shape[1]) * 0.5
     t0 = time.perf_counter()
     _, tr64, _ = _dspace_run(CubicNewton, LogisticRegression(
-        A, b, dtype=np.float64), x0, 20, cubic_solver="full")
+        A, b, dtype=np.float64, device="cpu"), x0, 20, cubic_solver="full")
     f_star = min(_iterates_f64(A, b, tr64))
     print(f"dense: w8a-like {A.shape} nnz {A.nnz}; fp64 CPU CRN f* "
           f"{f_star:.17g} in {time.perf_counter() - t0:.2f} s (JAX package "
@@ -436,7 +594,10 @@ def phase_dense(dev):
     if not (launches == calls and launches > 0):
         raise RuntimeError(f"dense products bypassed the kernel: {launches} "
                            f"launches vs {calls} calls")
-    out.update(launches=launches, dense_calls=calls)
+    out.update(launches=launches, dense_calls=calls,
+               reading_offset=_reading_offset("dense", float(loss.f_opt),
+                                              f_star),
+               reading_parts=_reading_parts(loss, A, b, f_star))
     return out
 
 
@@ -704,6 +865,240 @@ def phase_cli_dense():
                 dense_calls=cnt["dense_calls"])
 
 
+def phase_skew(dev):
+    """The K build under heavy column skew: the power-law problem at
+    rcv1's shape, whose first panel holds three quarters of the entries
+    (the JAX package leaves its panel scan for such input)."""
+    import torch
+
+    from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
+    from krylov_crn_tpu_torch.ops.gram import (
+        _pack_flat_panels,
+        build_K_device,
+        _heavy_skew,
+        pad_rows,
+    )
+    from krylov_crn_tpu_torch.ops.symv import symv, symv_plain
+
+    A, _ = synthetic_logreg((20242, 47236, 1342290), seed=0,
+                            profile="powerlaw")
+    n = A.shape[0]
+    n_pad = pad_rows(n)
+    *_, lens, _, nblk = _pack_flat_panels(A, n_pad, np.float32)
+    print(f"skew: {A.shape} nnz {A.nnz}, {nblk} panels, longest "
+          f"{int(lens.max())} entries, _heavy_skew "
+          f"{_heavy_skew(lens, A.nnz)}")
+    if not _heavy_skew(lens, A.nnz):
+        raise RuntimeError("skew: the problem is not a skewed one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K = build_K_device(A, n_pad, np.float32, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not torch.equal(K, K.T):
+        raise RuntimeError("skew: K is not bitwise symmetric")
+    rows = np.sort(np.random.default_rng(0).choice(n, 4096, replace=False))
+    want = torch.from_numpy((A[rows].astype(np.float64)
+                             @ A.astype(np.float64).T).toarray()).to(dev)
+    got = K[torch.from_numpy(rows).to(dev), :n].double()
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    x = torch.rand(n_pad, generator=torch.Generator(device=dev).manual_seed(5),
+                   device=dev)
+    y, yp = symv(K, x), symv_plain(K, x)
+    ref = K.double() @ x.double()
+    symv_rel = _rel(y, ref)
+    err = _hold_to_plain("skew", y, yp, ref)
+    print(f"skew: K build {build_s:.3f} s; 4,096 sampled rows against host "
+          f"A A^T rel {rel:.3e}; bitwise symmetric; symv on it rel "
+          f"{symv_rel:.3e} of fp64 (plain {_rel(yp, ref):.3e}), max |kernel "
+          f"- plain| {err:.3e}")
+    if not rel <= SKEW_K_TOL:
+        raise RuntimeError(f"skew: K rel err {rel:.3e} above {SKEW_K_TOL}")
+    if not symv_rel < SYMV_TOL:
+        raise RuntimeError(f"skew: symv rel err {symv_rel:.3e}")
+    return dict(build_s=build_s, rel_err=rel, symv_rel_err=symv_rel,
+                max_abs_err=err,
+                nnz=int(A.nnz), panels=int(nblk),
+                longest_panel=int(lens.max()))
+
+
+def _final_gaps_ok(tag, data):
+    """Every certified final gap of a merged Figure-2 JSON is finite and
+    not below -1e-12; returns the one leg's gaps."""
+    if "f_star" not in data or not np.isfinite(data["f_star"]):
+        raise RuntimeError(f"{tag}: the JSON has no finite f_star")
+    (gaps,) = data["final_gaps"].values()
+    bad = {a: g for a, g in gaps.items()
+           if g is None or not np.isfinite(g) or g < -1e-12}
+    if bad:
+        raise RuntimeError(f"{tag}: bad final gaps {bad}")
+    return gaps
+
+
+def phase_figure2(news20_alg):
+    """The Figure-2 tool's functions on the card: w8a-like whole (grid
+    (100, [10])), and news20-like without GramCRN (GramKrylov m=10 for 50
+    iterations on phase ``news20``'s K, SSCN m=1000 for 50), each merged
+    with nothing into a JSON of its own."""
+    import tempfile
+
+    import torch
+
+    from krylov_crn_tpu_torch.tools import run_figure2 as rf
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- w8a-like, the whole grid (d-space path, matvec kernel)
+        name = "w8a-like"
+        it_max, dims = rf.GRID[name]
+        A, b, x0 = rf.build_problem(name)
+        _reset_counts()
+        t0 = time.perf_counter()
+        curves, f_best = rf.run_ours(A, b, x0, it_max, dims, np.float32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cnt = _counts()
+        data = rf.merge_json(
+            f"{tmp}/{name}.json", name, "h100-fp32", curves, f_best,
+            rf.leg_meta(name, A, it_max, "h100-fp32", None))
+        gaps = _final_gaps_ok("figure2 w8a-like", data)
+        reading = min(min(c["fs"]) for c in curves.values())
+        off = _reading_offset("figure2 w8a-like", reading, data["f_star"])
+        print(f"figure2 w8a-like: {secs:.3f} s; f* {data['f_star']:.17g} "
+              f"(the JAX package's {W8A_F_STAR:.17g}); final gaps {gaps}; "
+              f"iterations { {a: c['its'][-1] for a, c in curves.items()} }; "
+              f"matvec launches {cnt['matvec']}, dense-branch products on "
+              f"the card {cnt['dense_calls']}")
+        if not (cnt["matvec"] == cnt["dense_calls"] and cnt["matvec"] > 0):
+            raise RuntimeError("figure2 w8a-like: dense products bypassed "
+                               "the kernel")
+        for alg in ("CRN", "Krylov CRN (m=10)"):
+            if not gaps[alg] <= DSPACE_GAP:
+                raise RuntimeError(f"figure2 w8a-like: {alg} final gap "
+                                   f"{gaps[alg]:.3e} above {DSPACE_GAP}")
+        out[name] = dict(seconds=secs, f_star=data["f_star"], final_gaps=gaps,
+                         reading_offset=off,
+                         matvec_launches=cnt["matvec"],
+                         dense_calls=cnt["dense_calls"],
+                         ts={a: c["ts"][-1] for a, c in curves.items()})
+
+        # ---- news20-like: GramKrylov m=10 (SYMV) and SSCN m=1000
+        name = "news20-like"
+        loss = news20_alg.loss
+        A, b = loss.A_host, loss.b
+        x0 = np.ones(A.shape[1]) * 0.5
+        curves = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        curves["Krylov CRN (m=10)"], kry = rf.run_krylov(
+            loss, b, x0, 50, gram=True, m=10, gram_data=news20_alg.gd)
+        torch.cuda.synchronize()
+        kry_s = time.perf_counter() - t0
+        cnt = _counts()
+        if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
+            raise RuntimeError("figure2 news20-like: K-matvecs bypassed the "
+                               "kernel")
+        t0 = time.perf_counter()
+        curves["SSCN (m=1000)"], sscn = rf.run_sscn(loss, b, x0, 50, 1000)
+        torch.cuda.synchronize()
+        sscn_s = time.perf_counter() - t0
+        sscn_ts = curves["SSCN (m=1000)"]["ts"]
+        data = rf.merge_json(
+            f"{tmp}/{name}.json", name, "h100-fp32", curves,
+            rf.leg_f_best(loss, curves),
+            rf.leg_meta(name, A, 50, "h100-fp32", None))
+        gaps = _final_gaps_ok("figure2 news20-like", data)
+        print(f"figure2 news20-like: GramKrylov m=10 {kry.it} iterations "
+              f"certified in {kry_s:.3f} s, symv launches {cnt['symv']}; "
+              f"SSCN m=1000 {sscn.it} iterations in {sscn_ts[-1]:.3f} s "
+              f"({sscn_ts[-1] / max(sscn.it, 1) * 1e3:.1f} ms per step; "
+              f"{sscn_s:.3f} s with warm-up and fp64 certification), "
+              f"solver_it {int(sscn.state.solver_it)}; f* "
+              f"{data['f_star']:.17g}; final gaps {gaps}")
+        out[name] = dict(krylov_seconds=kry_s, sscn_seconds=sscn_s,
+                         sscn_run_seconds=sscn_ts[-1],
+                         sscn_ms_per_step=sscn_ts[-1] / max(sscn.it, 1) * 1e3,
+                         f_star=data["f_star"], final_gaps=gaps,
+                         launches=cnt["symv"],
+                         kmatvec_calls=cnt["kmatvec_calls"])
+    return out
+
+
+def phase_stress1m(dev, card):
+    """The stress-1m sparse HVP (1M x 1M, 100M power-law entries made on
+    the card; CSR products, neither hand-written kernel), checked at a
+    tenth of the size against fp64 on the host, then timed at full size."""
+    import scipy.sparse as sp
+    import torch
+
+    from krylov_crn_tpu_torch.ops.spmv import hvp_sparse, spmv
+    from krylov_crn_tpu_torch.tools import measure_large_n as tool
+
+    # a tenth of the size, same generator: the card against scipy in fp64
+    n = d = 100_000
+    nnz = 10_000_000
+    rows, cols, vals = tool.device_powerlaw_coo(n, d, nnz, device=dev)
+    from krylov_crn_tpu_torch.data.formats import dual_from_coo
+
+    data = dual_from_coo(rows, cols, vals, n, d)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.rand(n, generator=gen, device=dev)
+    v = torch.randn(d, generator=gen, device=dev)
+    got = hvp_sparse(data, w, v).double().cpu().numpy()
+    M = sp.coo_matrix((vals.double().cpu().numpy(),
+                       (rows.cpu().numpy(), cols.cpu().numpy())),
+                      shape=(n, d)).tocsr()
+    want = M.T @ (w.double().cpu().numpy()
+                  * (M @ v.double().cpu().numpy())) / n
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    print(f"stress1m: {n} x {d}, {nnz} entries: card HVP against fp64 scipy "
+          f"rel {rel:.3e}")
+    if not rel <= STRESS_REL_TOL:
+        raise RuntimeError(f"stress1m: HVP rel err {rel:.3e} at a tenth of "
+                           "the size")
+    del data, rows, cols, vals, M
+    torch.cuda.empty_cache()
+
+    n = d = 1_000_000
+    nnz = 100_000_000
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = tool.build_device_dual(n, d, nnz, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    w = torch.rand(n, generator=gen, device=dev)
+    v = torch.randn(d, generator=gen, device=dev)
+    u = torch.randn(d, generator=gen, device=dev)
+    y1, y2 = hvp_sparse(data, w, v), hvp_sparse(data, w, v)
+    if not torch.equal(y1, y2):
+        raise RuntimeError("stress1m: two card HVPs differ")
+    if not bool(torch.isfinite(y1).all()):
+        raise RuntimeError("stress1m: non-finite HVP entries")
+    # u^T (A^T (w * A v)) = (A u)^T (w * A v), both summed in fp64
+    lhs = float(torch.dot(u.double(), y1.double() * n))
+    rhs = float(torch.dot(spmv(data, u).double(),
+                          (w * spmv(data, v)).double()))
+    adj = abs(lhs - rhs) / abs(rhs)
+    row = tool.result_row(n, d, nnz, build_s, tool.measure_hvp(data),
+                          card)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"stress1m: two HVPs bitwise equal, finite; adjoint identity rel "
+          f"{adj:.3e}; peak device memory {peak_gb:.2f} GB")
+    print(f"stress1m: {json.dumps(row)}")
+    print(f"stress1m: HVP {row['hvp_s'] * 1e3:.3f} ms against a bound of "
+          f"{row['bound_ms']:.3f} ms (A and A^T once with int32 column "
+          f"indices, w and v in, the result out, 3.35 TB/s): "
+          f"{row['share_of_bound']:.1%} of it; the format streams int64 "
+          f"indices, {row['format_bound_ms']:.3f} ms: "
+          f"{row['share_of_format_bound']:.1%}")
+    if not adj <= STRESS_ADJ_TOL:
+        raise RuntimeError(f"stress1m: adjoint identity off by {adj:.3e}")
+    del data
+    torch.cuda.empty_cache()
+    return dict(row, rel_err_tenth=rel, adjoint_rel=adj, peak_gb=peak_gb)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON")
@@ -711,6 +1106,7 @@ def main(argv=None):
 
     import torch
 
+    t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda", 0)
     record = {"card": card, "build_s": phase_build(),
@@ -728,23 +1124,45 @@ def main(argv=None):
     torch.cuda.empty_cache()
     record["sscn"] = phase_sscn(dev)
     record["cli_dense"] = phase_cli_dense()
-    kk, mv = record["kernel_on_K"], record["matvec"]
+    torch.cuda.empty_cache()
+    news20_alg, record["news20"] = phase_news20(dev)
+    record["kernel_on_K_news20"] = phase_kernel_on_K(
+        dev, news20_alg.gd.K, "news20-like")
+    record["figure2"] = phase_figure2(news20_alg)
+    del news20_alg
+    torch.cuda.empty_cache()
+    record["skew"] = phase_skew(dev)
+    torch.cuda.empty_cache()
+    record["stress1m"] = phase_stress1m(dev, card)
+    record["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: all phases in {record['seconds']:.1f} s")
+    kk, mv, fig = record["kernel_on_K"], record["matvec"], record["figure2"]
+    mv_bound = mv["bound_20480x20480_float32"]
     kernels = {"kernels": [{
         "name": "symv_upper", "route": "cuda",
         "source": "krylov_crn_tpu_torch/csrc/symv.cu",
         "replaces": "krylov_crn_tpu/ops/symv.py:69",
         "launches": (record["main"]["launches"]
-                     + record["cli_gram"]["launches"]),
-        "max_abs_err": kk["max_abs_err"], "ms": kk["ms"],
-        "plain_ms": kk["plain_ms"]}, {
+                     + record["cli_gram"]["launches"]
+                     + record["news20"]["launches"]
+                     + fig["news20-like"]["launches"]),
+        "max_abs_err": max(kk["max_abs_err"],
+                           record["kernel_on_K_news20"]["max_abs_err"],
+                           record["skew"]["max_abs_err"]),
+        "ms": kk["ms"],
+        "plain_ms": kk["plain_ms"], "bound_ms": kk["bound_ms"],
+        "bound_by": kk["bound_by"], "library_ms": kk["library_ms"]}, {
         "name": "matvec", "route": "cuda",
         "source": "krylov_crn_tpu_torch/csrc/matvec.cu",
         "replaces": "tools/measure_matvec.py:35",
         "launches": (record["dense"]["launches"]
-                     + record["cli_dense"]["launches"]),
+                     + record["cli_dense"]["launches"]
+                     + fig["w8a-like"]["matvec_launches"]),
         "max_abs_err": mv["max_abs_err"],
         "ms": min(mv["ms_20480x20480_float32"]),
-        "plain_ms": min(mv["plain_ms_20480x20480_float32"])}]}
+        "plain_ms": min(mv["plain_ms_20480x20480_float32"]),
+        "bound_ms": mv_bound[0], "bound_by": mv_bound[1],
+        "library_ms": mv["library_ms_20480x20480_float32"]}]}
     if args.out:
         import os
 

@@ -48,10 +48,13 @@ def as_torch_dtype(dtype) -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> CPU; a CUDA request without a usable card raises
-    instead of falling back to the CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` -> the first card, ``cuda:0``; the CPU only when asked for
+    (``device="cpu"``). A CUDA device without a usable card raises: no
+    entry point falls back to the CPU."""
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
+        how = "is the default" if device is None else "was requested"
         raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is False")
+            f"device {dev} {how} but torch.cuda.is_available() is False; "
+            "pass device=\"cpu\" to run on the CPU")
     return dev

@@ -26,7 +26,8 @@ import torch
 
 from krylov_crn_tpu_torch.config import resolve_device
 
-__all__ = ["DualSparse", "build_dual", "from_scipy", "padded_dense"]
+__all__ = ["DualSparse", "build_dual", "dual_from_coo", "from_scipy",
+           "padded_dense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,37 @@ def from_scipy(A, dtype=np.float32, device=None) -> torch.Tensor:
             torch.from_numpy(A.indices.astype(np.int64)),
             torch.from_numpy(np.asarray(A.data, dtype)),
             size=A.shape, check_invariants=False).to(dev)
+
+
+def _csr(row_ids, cols, vals, n_rows, n_cols) -> torch.Tensor:
+    """Sparse CSR tensor from entries already sorted by ``row_ids``."""
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=vals.device)
+    crow[1:] = torch.cumsum(torch.bincount(row_ids, minlength=n_rows), 0)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*[Ss]parse.*")
+        # check_invariants=False: the checks read the index arrays back to
+        # the host
+        return torch.sparse_csr_tensor(crow, cols, vals, size=(n_rows, n_cols),
+                                       check_invariants=False)
+
+
+def dual_from_coo(rows, cols, vals, n: int, d: int) -> DualSparse:
+    """DualSparse from row-sorted COO index tensors (int64) on any device,
+    built where they lie, with no trip through scipy: A takes the entries
+    as they are, A^T the same entries stably sorted by column (so each of
+    its rows keeps ascending column order).
+
+    The entries may repeat a (row, column) pair. The products of
+    ``ops/spmv`` sum repeats as separate entries, which is the sum of the
+    merged matrix; ``ops/coords.gather_columns_dense`` scatters each pair
+    once and must not be given such data."""
+    order = torch.argsort(cols, stable=True)
+    a = _csr(rows, cols, vals, n, d)
+    at = _csr(cols[order], rows[order], vals[order], d, n)
+    at_indptr = at.crow_indices()
+    max_col = int((at_indptr[1:] - at_indptr[:-1]).max()) if d > 0 else 0
+    return DualSparse(a=a, at=at, at_indptr=at_indptr, dense=None,
+                      dense_t=None, max_col_nnz=max_col)
 
 
 def padded_dense(t: torch.Tensor, device=None) -> torch.Tensor:

@@ -70,7 +70,11 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
         terms = terms * mask
     if n is None:
         n = Ax.shape[0]
-    hi, lo = accum_sum_pair(terms.to(adt) / n, adt)
+    # a 0-d divisor on the terms' device: CUDA divides a tensor by a Python
+    # number as a product with the rounded reciprocal, which would scale
+    # every term alike (up to 6e-8 relative; it does not average out)
+    terms = terms.to(adt) / torch.full((), n, dtype=adt, device=terms.device)
+    hi, lo = accum_sum_pair(terms, adt)
     if l2:
         t = (l2 / 2.0) * accum_dot(x, x, adt).to(adt)
         hi, e = two_sum(hi, t)

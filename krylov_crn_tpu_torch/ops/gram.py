@@ -65,16 +65,23 @@ class GramData:
         return self.K.shape[0]
 
 
+def _heavy_skew(lens, nnz: int) -> bool:
+    """The JAX package's test for heavy column skew: with every panel
+    given one window of ``cap`` entries (the longest panel, rounded up to
+    8192), the windows together would hold more than four times the nnz.
+    Its ``lax.scan`` build leaves the panel scan for a masked-GEMM
+    fallback there; the port's eager loop slices each panel at its exact
+    length and builds skewed input like any other."""
+    cap = _round_up(int(max(lens)) if len(lens) else 1, 8192)
+    return len(lens) * cap > 4 * max(1, int(nnz))
+
+
 def _pack_flat_panels(A, n_pad, dtype, col_block=2048):
     """Host-side packing of the panel build (numpy, as in the JAX
     package): compact empty columns, cut into ``col_block``-wide panels,
-    and emit the flat (rows, vals) streams, the per-active-column END
-    offsets CE (each nnz's within-panel column is rebuilt from them on
-    the device), plus per-panel (start, len).
-
-    Returns None under heavy column skew (one panel holding most of the
-    nnz); the JAX package then takes a masked-GEMM fallback that the port
-    does not have yet."""
+    and emit the flat (rows, vals) streams of exactly nnz entries, the
+    per-active-column END offsets CE (each nnz's within-panel column is
+    rebuilt from them on the device), plus per-panel (start, len)."""
     Acsc = A.tocsc()
     counts = np.diff(Acsc.indptr)
     active = np.flatnonzero(counts)
@@ -86,19 +93,13 @@ def _pack_flat_panels(A, n_pad, dtype, col_block=2048):
     starts = Acsc.indptr[np.arange(nblk) * cb].astype(np.int32)
     ends = Acsc.indptr[np.minimum(np.arange(1, nblk + 1) * cb, d)]
     lens = (ends - starts).astype(np.int32)
-    cap = _round_up(int(lens.max()) if nblk else 1, 8192)
-    if nblk * cap > 4 * max(1, int(Acsc.nnz)):
-        return None  # heavy skew: masked fallback
     ridt = np.uint16 if n_pad <= 65535 else np.int32
     nnz = int(Acsc.nnz)
-    L = int(starts[-1]) + cap if nblk else cap
-    Rf = np.zeros(L, ridt)
-    Rf[:nnz] = Acsc.indices
+    Rf = Acsc.indices.astype(ridt)
     CE = np.full(nblk * cb, nnz, np.int32)
     CE[:d] = Acsc.indptr[1:d + 1]
-    Vf = np.zeros(L, dtype)
-    Vf[:nnz] = Acsc.data.astype(dtype)
-    return Rf, CE, Vf, starts, lens, cb, cap, nblk
+    Vf = Acsc.data.astype(dtype)
+    return Rf, CE, Vf, starts, lens, cb, nblk
 
 
 def build_K_device(A, n_pad: int, dtype, device):
@@ -107,16 +108,14 @@ def build_K_device(A, n_pad: int, dtype, device):
     Each panel's nnz are scattered into a dense (n_pad x cb) buffer B
     (CSR holds no duplicates, so a plain ``index_put_`` without atomics),
     and K accumulates B B^T through ``addmm_`` at full fp32 (config.py
-    turns TF32 off). cuBLAS does not promise that B B^T is bitwise
+    turns TF32 off). Every panel is sliced at its own length, so one
+    panel holding most of the nnz (heavy column skew) costs no more than
+    its entries. cuBLAS does not promise that B B^T is bitwise
     symmetric, and the SYMV kernel reads only the upper triangle, so the
     result is symmetrized once at the end: 0.5 * (K + K^T) is bitwise
     symmetric because fp addition commutes and halving is exact."""
-    packed = _pack_flat_panels(A, n_pad, np.dtype(dtype))
-    if packed is None:
-        raise NotImplementedError(
-            "heavy column skew: the masked-GEMM K-build fallback "
-            "(krylov_crn_tpu/ops/gram.py:_build_K_device) is not ported yet")
-    Rf, CE, Vf, starts, lens, cb, _, nblk = packed
+    Rf, CE, Vf, starts, lens, cb, nblk = _pack_flat_panels(
+        A, n_pad, np.dtype(dtype))
     tdt = as_torch_dtype(dtype)
     rows = torch.from_numpy(Rf.astype(np.int64)).to(device)
     vals = torch.from_numpy(Vf).to(device)

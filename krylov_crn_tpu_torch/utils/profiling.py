@@ -17,7 +17,8 @@ from __future__ import annotations
 import statistics
 from typing import Callable
 
-__all__ = ["device_time_per_call", "roofline_fraction", "HBM_BYTES_PER_S"]
+__all__ = ["device_time_per_call", "alternating_ms", "roofline_fraction",
+           "card_description", "HBM_BYTES_PER_S"]
 
 # NVIDIA H100 SXM device memory bandwidth, bytes/s (the card's published
 # figure at the full 700 W power limit)
@@ -26,6 +27,20 @@ HBM_BYTES_PER_S = 3.35e12
 # ~25 ms at the H100's ~2 GHz clock: longer than the host takes to queue
 # a few dozen timed calls
 SPIN_CYCLES = 50_000_000
+
+
+def card_description() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: a
+    card set below its full limit runs slower under load, so every kept
+    number stands beside this line."""
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def device_time_per_call(fn: Callable, x, reps: int = 25,
@@ -54,6 +69,17 @@ def device_time_per_call(fn: Callable, x, reps: int = 25,
         x = feed(x, y)
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def alternating_ms(kernel: Callable, plain: Callable, x, reps: int = 25):
+    """plain, kernel, kernel, plain on the same card: two lists, the
+    kernel's and the plain version's median ms per call of each run
+    (two versions compare only within one process on one card)."""
+    t = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if name == "kernel" else plain
+        t[name].append(device_time_per_call(fn, x, reps=reps))
+    return t["kernel"], t["plain"]
 
 
 def roofline_fraction(bytes_moved: float, seconds: float,

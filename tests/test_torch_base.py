@@ -7,6 +7,8 @@ import numpy as np
 
 from krylov_crn_tpu_torch import SSCN, GramCRN, LogisticRegression
 
+CPU = "cpu"  # the library's default device is the card
+
 
 def test_store_iterates_false_traces_state_values(small_problem):
     """The traced loss values are the state's two-float values: equal to
@@ -14,7 +16,7 @@ def test_store_iterates_false_traces_state_values(small_problem):
     A, b, x0 = small_problem
     traces = {}
     for store in (True, False):
-        alg = SSCN(loss=LogisticRegression(A, b, dtype=np.float64),
+        alg = SSCN(loss=LogisticRegression(A, b, dtype=np.float64, device=CPU),
                    reg_coef=1e-3, subspace_dim=10, store_iterates=store)
         tr = alg.run(x0=x0, it_max=8)
         if store:
@@ -32,7 +34,7 @@ def test_warm_leaves_the_next_run_fresh(small_problem):
     A, b, x0 = small_problem
 
     def make():
-        return GramCRN(loss=LogisticRegression(A, b, dtype=np.float32),
+        return GramCRN(loss=LogisticRegression(A, b, dtype=np.float32, device=CPU),
                        reg_coef=1e-3, tolerance=0, device="cpu")
 
     fresh = make()

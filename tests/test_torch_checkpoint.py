@@ -15,6 +15,8 @@ from krylov_crn_tpu_torch.utils.checkpoint import (
     save_state,
 )
 
+CPU = "cpu"  # the library's default device is the card
+
 SOLVERS = {
     "krylov": lambda loss: CubicKrylov(loss=loss, reg_coef=1e-3,
                                        subspace_dim=6, label="k"),
@@ -28,7 +30,7 @@ def test_save_load_run_resumes_exactly(tmp_path, small_problem, name):
     """12 iterations straight against 6, checkpoint, a fresh optimizer,
     6 more: the same state bit for bit (fp64)."""
     A, b, x0 = small_problem
-    make = lambda: SOLVERS[name](LogisticRegression(A, b, dtype=np.float64))
+    make = lambda: SOLVERS[name](LogisticRegression(A, b, dtype=np.float64, device=CPU))
     straight = make()
     straight.run(x0=x0, it_max=12)
 
@@ -54,7 +56,7 @@ def test_sscn_generator_state_is_what_resumes(tmp_path, small_problem):
     coordinates: the checkpoint is what makes the resume exact."""
     A, b, x0 = small_problem
     make = lambda: SOLVERS["sscn"](LogisticRegression(A, b,
-                                                      dtype=np.float64))
+                                                      dtype=np.float64, device=CPU))
     straight = make()
     straight.run(x0=x0, it_max=10)
     first = make()
@@ -72,7 +74,7 @@ def test_sscn_generator_state_is_what_resumes(tmp_path, small_problem):
 
 def test_load_state_keeps_types_and_device(tmp_path, small_problem):
     A, b, x0 = small_problem
-    alg = SOLVERS["krylov"](LogisticRegression(A, b, dtype=np.float32))
+    alg = SOLVERS["krylov"](LogisticRegression(A, b, dtype=np.float32, device=CPU))
     alg.run(x0=x0, it_max=2)
     save_state(tmp_path / "st.npz", alg.state, extra={"note": "x"})
     st, extra = load_state(tmp_path / "st.npz", alg.state)

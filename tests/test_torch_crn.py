@@ -25,6 +25,8 @@ from krylov_crn_tpu_torch.ops.subproblem import (
 from krylov_crn_tpu_torch.solvers import crn as tc
 from krylov_crn_tpu_torch.solvers.krylov_crn import initial_state
 
+CPU = "cpu"  # the library's default device is the card
+
 STEP_KW = dict(beta=0.5, solver_eps=1e-8, solver_it_max=100, ls_max=200,
                reg_ceil=1e6)
 
@@ -43,7 +45,7 @@ def test_trajectory_matches_jax(small_problem, solver, l2):
                         **kw)
     tj = ja.run(jnp.asarray(x0), it_max=8)
     ja.compute_loss_of_iterates()
-    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2)
+    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2, device=CPU)
     alg = CubicNewton(loss=loss, **kw)
     tt = alg.run(x0, it_max=8)
     alg.compute_loss_of_iterates()
@@ -65,9 +67,9 @@ def test_one_step_from_carried_state_matches(small_problem, solver):
     st = jstep(jl.data, jl.b, st, accum_dtype=jnp.float64, **STEP_KW)
     st_j = jax.device_get(jstep(jl.data, jl.b, st, accum_dtype=jnp.float64,
                                 **STEP_KW))
-    loss = LogisticRegression(A, b, dtype=np.float64)
+    loss = LogisticRegression(A, b, dtype=np.float64, device=CPU)
     st_t = tstep(loss.data, loss.b_t,
-                 crn_state_from_numpy(jax.device_get(st)),
+                 crn_state_from_numpy(jax.device_get(st), device=CPU),
                  accum_dtype=torch.float64, **STEP_KW)
     assert int(st_t.solver_it) == int(st_j.solver_it)
     for f in ("x", "Ax", "value", "reg_coef", "r0", "diff_norm",
@@ -77,7 +79,7 @@ def test_one_step_from_carried_state_matches(small_problem, solver):
 
 def test_grad_norm_early_exit(small_problem):
     A, b, x0 = small_problem
-    loss = LogisticRegression(A, b, dtype=np.float64)
+    loss = LogisticRegression(A, b, dtype=np.float64, device=CPU)
     st = initial_state(loss, x0, 1e-3, tc.CRNState)
     out = tc.crn_step_full(loss.data, loss.b_t, st, tolerance=1e3,
                            accum_dtype=torch.float64)

@@ -11,6 +11,8 @@ import torch
 from krylov_crn_tpu.data.formats import build_dual as jbuild
 from krylov_crn_tpu_torch.data.formats import build_dual, padded_dense
 
+CPU = "cpu"  # the library's default device is the card
+
 
 def _empty_rows_cols():
     dense = np.zeros((6, 5))
@@ -33,7 +35,7 @@ CASES = {
 @pytest.mark.parametrize("want_dense", [None, False, True])
 def test_dual_matches_scipy_and_jax(case, want_dense):
     A = CASES[case]()
-    ours = build_dual(A, dtype=np.float64, want_dense=want_dense)
+    ours = build_dual(A, dtype=np.float64, want_dense=want_dense, device=CPU)
     theirs = jbuild(A, dtype=np.float64, want_dense=want_dense)
     assert ours.a.layout == torch.sparse_csr
     assert ours.at.layout == torch.sparse_csr
@@ -60,7 +62,7 @@ def test_want_dense_rule_matches_jax():
     for M in (A, B):
         for dtype, limit in ((np.float32, 64 * 2048 * 4),
                              (np.float64, 64 * 2048 * 4)):
-            got = build_dual(M, dtype=dtype, dense_threshold_bytes=limit)
+            got = build_dual(M, dtype=dtype, dense_threshold_bytes=limit, device=CPU)
             want = jbuild(M, dtype=dtype, dense_threshold_bytes=limit)
             assert (got.dense is None) == (want.dense is None), (M.shape,
                                                                  dtype)
@@ -71,7 +73,7 @@ def test_want_dense_rule_matches_jax():
 def test_dense_rows_are_16_byte_aligned(dtype):
     M = torch.arange(7 * 300, dtype=torch.float64).reshape(7, 300).to(dtype)
     for src in (M, M.T):  # A and A^T: rows of 300 and of 7 elements
-        t = padded_dense(src)
+        t = padded_dense(src, device=CPU)
         assert t.shape == src.shape and t.dtype == dtype
         assert (t.stride(0) * t.element_size()) % 16 == 0
         assert t.data_ptr() % 16 == 0

@@ -12,6 +12,8 @@ from krylov_crn_tpu.ops import gram as jg
 from krylov_crn_tpu_torch.convert import gram_data_from_numpy
 from krylov_crn_tpu_torch.ops import gram as tg
 
+CPU = "cpu"  # the library's default device is the card
+
 
 @pytest.fixture(scope="module")
 def gram_problem():
@@ -26,7 +28,7 @@ def gram_problem():
 def both_gd(gram_problem):
     A, b, x0 = gram_problem
     gj = jg.build_gram(A, b, x0, dtype=np.float64, low_res_lanczos=False)
-    gt = tg.build_gram(A, b, x0, dtype=np.float64)
+    gt = tg.build_gram(A, b, x0, dtype=np.float64, device=CPU)
     return gj, gt
 
 
@@ -43,21 +45,28 @@ def test_cpu_build_equals_jax_build(both_gd):
 def test_device_build_matches_jax_build(gram_problem, both_gd):
     A, b, x0 = gram_problem
     gj, _ = both_gd
-    gd = tg.build_gram(A, b, x0, dtype=np.float64, device_build=True)
+    gd = tg.build_gram(A, b, x0, dtype=np.float64, device_build=True,
+                       device=CPU)
     np.testing.assert_allclose(gd.K.numpy(), np.asarray(gj.K), rtol=1e-12,
                                atol=1e-12)
     assert torch.equal(gd.K, gd.K.T)
 
 
 def test_heavy_skew_build_raises():
-    """The JAX package's masked-GEMM fallback is not ported: a build whose
-    panels would each re-stream most of the nnz says so."""
+    """Heavy column skew builds and matches the host (the name dates from
+    when the port raised on it): where the JAX package leaves its panel
+    scan (its ``_pack_flat_panels`` returns None), the port's one build
+    path gives host A A^T (tests/test_torch_gram_skew.py holds it against
+    the JAX fallback)."""
     rng = np.random.default_rng(0)
     A = sp.random(64, 9000, density=0.0005, random_state=rng, format="csr")
-    assert tg._pack_flat_panels(A, 256, np.float64) is None
-    with pytest.raises(NotImplementedError):
-        tg.build_gram(A, np.ones(64), np.ones(9000), dtype=np.float64,
-                      device_build=True)
+    assert jg._pack_flat_panels(A, 256, np.float64) is None
+    packed = tg._pack_flat_panels(A, 256, np.float64)
+    assert tg._heavy_skew(packed[4], A.nnz)
+    gd = tg.build_gram(A, np.ones(64), np.ones(9000), dtype=np.float64,
+                       device_build=True, device=CPU)
+    np.testing.assert_allclose(gd.K.numpy()[:64, :64], (A @ A.T).toarray(),
+                               rtol=0, atol=1e-12)
 
 
 def test_rep_dot_matches_jax(both_gd):
@@ -116,7 +125,7 @@ def test_gram_lanczos_matches_jax(both_gd, l2):
 
 def test_gram_data_from_numpy_carries_jax_data(both_gd):
     gj, gt = both_gd
-    gc = gram_data_from_numpy(jax.device_get(gj))
+    gc = gram_data_from_numpy(jax.device_get(gj), device=CPU)
     for f in ("K", "Ax0", "b", "mask", "x0_sqnorm"):
         assert torch.equal(getattr(gc, f), getattr(gt, f)), f
     assert (gc.n, gc.d, gc.nnz) == (gt.n, gt.d, gt.nnz)

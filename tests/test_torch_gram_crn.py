@@ -19,6 +19,8 @@ from krylov_crn_tpu_torch.convert import gram_data_from_numpy, state_from_numpy
 from krylov_crn_tpu_torch.ops.gram import Rep, rep_axpy
 from krylov_crn_tpu_torch.solvers import crn_gram as tcg
 
+CPU = "cpu"  # the library's default device is the card
+
 STEP_KW = dict(beta=0.5, solver_eps=1e-8, solver_it_max=100, ls_max=200,
                cg_maxiter=500, reg_ceil=1e6)
 PAIRS = {"value": "value_lo", "Ax": "Ax_lo", "f_best": "f_best_lo"}
@@ -47,8 +49,8 @@ def _jax_solver(A, b, l2=0.0):
 
 
 def _port_solver(A, b, dtype=np.float64, l2=0.0, **kw):
-    return GramCRN(loss=LogisticRegression(A, b, dtype=dtype, l2=l2),
-                   reg_coef=1e-3, **kw)
+    return GramCRN(loss=LogisticRegression(A, b, dtype=dtype, l2=l2, device=CPU),
+                   reg_coef=1e-3, **kw, device=CPU)
 
 
 @pytest.mark.parametrize("l2, lam", [(0.0, 1e-2), (1e-2, 1e-3)])
@@ -63,7 +65,7 @@ def test_cg_rep_matches_jax(gram_problem, l2, lam):
     rhs = JRep(-g.beta, -g.w, -g.u)
     sj, itj = jcg.cg_rep(ja.gd, lambda v: jrep_axpy(hop(v), lam, v), rhs,
                          1e-8, 500, jnp.float64)
-    gd = gram_data_from_numpy(jax.device_get(ja.gd))
+    gd = gram_data_from_numpy(jax.device_get(ja.gd), device=CPU)
     t = lambda a: torch.from_numpy(np.array(a))
     hop_t = tcg._hop(gd, t(D), l2)
     s, it = tcg.cg_rep(gd, lambda v: rep_axpy(hop_t(v), lam, v),
@@ -84,8 +86,8 @@ def test_one_step_from_carried_state_matches(gram_problem, l2, after):
     kw = dict(STEP_KW, l2=l2)
     for _ in range(after):
         st = jcg.gram_crn_step(ja.gd, st, accum_dtype=jnp.float64, **kw)
-    gd = gram_data_from_numpy(jax.device_get(ja.gd))
-    st_t = tcg.gram_crn_step(gd, state_from_numpy(jax.device_get(st)),
+    gd = gram_data_from_numpy(jax.device_get(ja.gd), device=CPU)
+    st_t = tcg.gram_crn_step(gd, state_from_numpy(jax.device_get(st), device=CPU),
                              accum_dtype=torch.float64, **kw)
     st_j = jax.device_get(jcg.gram_crn_step(ja.gd, st,
                                             accum_dtype=jnp.float64, **kw))
@@ -124,7 +126,7 @@ def test_gram_crn_matches_standard_cg(gram_problem):
     test_gram_crn_matches_standard_cg, same bounds)."""
     A, b, x0 = gram_problem
     std = CubicNewton(loss=LogisticRegression(A, b, dtype=np.float64,
-                                              want_dense=False),
+                                              want_dense=False, device=CPU),
                       reg_coef=1e-3, cubic_solver="CG", tolerance=1e-8)
     std.run(x0=x0, it_max=6)
     gram = _port_solver(A, b, tolerance=1e-8)

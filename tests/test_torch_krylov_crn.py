@@ -15,6 +15,8 @@ from krylov_crn_tpu_torch import CubicKrylov, LogisticRegression
 from krylov_crn_tpu_torch.convert import krylov_state_from_numpy
 from krylov_crn_tpu_torch.solvers import krylov_crn as tk
 
+CPU = "cpu"  # the library's default device is the card
+
 KW = dict(m=10, beta=0.5, solver_eps=1e-8, solver_it_max=100, ls_max=20,
           reorth_passes=1, reg_ceil=1e6)
 PAIRS = {"value": "value_lo", "f_best": "f_best_lo"}
@@ -53,9 +55,9 @@ def test_one_step_from_carried_state_matches(small_problem, l2, after):
     A, b, x0 = small_problem
     jl, states = _jax_run(A, b, x0, l2, after + 1)
     st, st_j = states[after], jax.device_get(states[after + 1])
-    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2)
+    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2, device=CPU)
     st_t = tk.krylov_step(loss.data, loss.b_t,
-                          krylov_state_from_numpy(jax.device_get(st)),
+                          krylov_state_from_numpy(jax.device_get(st), device=CPU),
                           l2=l2, accum_dtype=torch.float64, **KW)
     assert int(st_t.solver_it) == int(st_j.solver_it)
     for f in tk.KrylovState._fields:
@@ -74,7 +76,7 @@ def test_fp64_trajectory_matches_jax(small_problem, want_dense):
     A, b, x0 = small_problem
     _, states = _jax_run(A, b, x0, 0.0, 30, want_dense=want_dense)
     want = [float(s.value) + float(s.value_lo) for s in states]
-    loss = LogisticRegression(A, b, dtype=np.float64, want_dense=want_dense)
+    loss = LogisticRegression(A, b, dtype=np.float64, want_dense=want_dense, device=CPU)
     alg = CubicKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0)
     tr = alg.run(x0, it_max=30)
     assert list(tr.its) == list(range(31))
@@ -90,7 +92,7 @@ def test_fp32_path_reaches_fp64_optimum(small_problem):
     A, b, x0 = small_problem
     _, states = _jax_run(A, b, x0, 0.0, 40)
     f64 = float(states[-1].value) + float(states[-1].value_lo)
-    loss = LogisticRegression(A, b, dtype=np.float32)
+    loss = LogisticRegression(A, b, dtype=np.float32, device=CPU)
     alg = CubicKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0)
     tr = alg.run(x0, it_max=40)
     assert alg.state.x.dtype == torch.float32
@@ -104,7 +106,7 @@ def test_dense_and_sparse_branches_give_the_same_step(sparse_problem):
     out = []
     for want_dense in (True, False):
         loss = LogisticRegression(A, b, dtype=np.float64,
-                                  want_dense=want_dense)
+                                  want_dense=want_dense, device=CPU)
         assert (loss.data.dense is not None) == want_dense
         st = tk.initial_state(loss, x0, 1e-3, tk.KrylovState)
         for _ in range(2):

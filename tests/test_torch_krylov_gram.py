@@ -19,6 +19,8 @@ from krylov_crn_tpu_torch.convert import gram_data_from_numpy, state_from_numpy
 from krylov_crn_tpu_torch.ops.gram import GramData
 from krylov_crn_tpu_torch.solvers import krylov_gram as tk
 
+CPU = "cpu"  # the library's default device is the card
+
 KW = dict(m=10, beta=0.5, solver_eps=1e-8, solver_it_max=100, ls_max=20,
           reorth_passes=1)
 PAIRS = {"value": "value_lo", "Ax": "Ax_lo", "f_best": "f_best_lo"}
@@ -30,8 +32,8 @@ def _jax_solver(A, b, dtype, l2=0.0, m=10):
 
 
 def _port_solver(A, b, dtype, l2=0.0, m=10):
-    return GramKrylov(loss=LogisticRegression(A, b, dtype=dtype, l2=l2),
-                      reg_coef=1e-3, subspace_dim=m, tolerance=0)
+    return GramKrylov(loss=LogisticRegression(A, b, dtype=dtype, l2=l2, device=CPU),
+                      reg_coef=1e-3, subspace_dim=m, tolerance=0, device=CPU)
 
 
 def _rel_err(a, b):
@@ -51,8 +53,8 @@ def test_one_step_from_carried_state_matches(small_problem, l2, after):
     kw = dict(KW, l2=l2, reg_ceil=1e6)
     for _ in range(after):
         st = jk.gram_krylov_step(ja.gd, st, accum_dtype=jnp.float64, **kw)
-    gd = gram_data_from_numpy(jax.device_get(ja.gd))
-    st_t = tk.gram_krylov_step(gd, state_from_numpy(jax.device_get(st)),
+    gd = gram_data_from_numpy(jax.device_get(ja.gd), device=CPU)
+    st_t = tk.gram_krylov_step(gd, state_from_numpy(jax.device_get(st), device=CPU),
                                accum_dtype=torch.float64, **kw)
     st_j = jax.device_get(jk.gram_krylov_step(ja.gd, st,
                                               accum_dtype=jnp.float64, **kw))
@@ -157,7 +159,7 @@ def test_gram_value_pair_matches_jax(small_problem, dtype):
     adt_j, adt_t = jnp.dtype(dtype), tk.accum_dtype(dtype)
     hj, lj = jk._gram_value(gdj, jnp.asarray(Ax), jnp.asarray(xsq), 1e-2,
                             adt_j, Ax_lo=jnp.asarray(Ax_lo))
-    gd = gram_data_from_numpy(jax.device_get(gdj))
+    gd = gram_data_from_numpy(jax.device_get(gdj), device=CPU)
     ht, lt = tk._gram_value(gd, torch.from_numpy(Ax), torch.from_numpy(xsq),
                             1e-2, adt_t, Ax_lo=torch.from_numpy(Ax_lo))
     want = float(hj) + float(lj)
@@ -192,5 +194,5 @@ def test_step_loop_and_trace_match_jax(small_problem, tmp_path):
 def test_hessian_lipschitz_matches_jax(small_problem):
     A, b, _ = small_problem
     want = JLoss(A, b, dtype=np.float64).hessian_lipschitz
-    got = LogisticRegression(A, b, dtype=np.float64).hessian_lipschitz
+    got = LogisticRegression(A, b, dtype=np.float64, device=CPU).hessian_lipschitz
     assert got == pytest.approx(want, rel=1e-9)

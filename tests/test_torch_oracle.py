@@ -12,6 +12,8 @@ from krylov_crn_tpu.models.logistic import LogisticRegression as JLoss
 from krylov_crn_tpu_torch import LogisticRegression
 from krylov_crn_tpu_torch.models.base import Oracle, Regularizer
 
+CPU = "cpu"  # the library's default device is the card
+
 
 def _rel(got, want):
     got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
@@ -26,7 +28,7 @@ def pair(request, small_problem):
     want_dense, l2 = request.param
     A, b, x0 = small_problem
     ours = LogisticRegression(A, b, dtype=np.float64, l2=l2,
-                              want_dense=want_dense)
+                              want_dense=want_dense, device=CPU)
     theirs = JLoss(A, b, dtype=np.float64, l2=l2, want_dense=want_dense)
     assert (ours.data.dense is not None) == want_dense
     rng = np.random.default_rng(11)
@@ -80,7 +82,7 @@ def test_smoothness_constants(pair):
 
 def test_mat_vec_cache(small_problem):
     A, b, x0 = small_problem
-    loss = LogisticRegression(A, b, dtype=np.float64)
+    loss = LogisticRegression(A, b, dtype=np.float64, device=CPU)
     x = torch.from_numpy(x0)
     Ax = loss.mat_vec_product(x)
     assert loss.mat_vec_product(x) is Ax

@@ -19,6 +19,8 @@ from krylov_crn_tpu_torch.ops import spmv as tspmv
 jspmv = importlib.import_module("krylov_crn_tpu.ops.spmv")
 from krylov_crn_tpu_torch.ops.matvec import matvec
 
+CPU = "cpu"  # the library's default device is the card
+
 
 def _pair(want_dense, seed=0):
     rng = np.random.default_rng(seed)
@@ -31,7 +33,7 @@ def _pair(want_dense, seed=0):
     x = rng.standard_normal(45)
     z = rng.standard_normal(120)
     return (A, jbuild(A, dtype=np.float64, want_dense=want_dense),
-            build_dual(A, dtype=np.float64, want_dense=want_dense), x, z)
+            build_dual(A, dtype=np.float64, want_dense=want_dense, device=CPU), x, z)
 
 
 def _close(got, want):
@@ -82,7 +84,7 @@ def test_sparse_branch_is_repeatable_fp32():
     every call."""
     td32 = build_dual(sp.random(500, 300, density=0.05, random_state=4,
                                 format="csr"), dtype=np.float32,
-                      want_dense=False)
+                      want_dense=False, device=CPU)
     v = torch.from_numpy(np.random.default_rng(5).standard_normal(
         300).astype(np.float32))
     y = tspmv.spmv(td32, v)

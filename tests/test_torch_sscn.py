@@ -20,6 +20,8 @@ from krylov_crn_tpu_torch.models.logistic import logreg_partials
 from krylov_crn_tpu_torch.ops.coords import gather_columns_dense
 from krylov_crn_tpu_torch.solvers import sscn as ts
 
+CPU = "cpu"  # the library's default device is the card
+
 M = 12
 STEP_KW = dict(beta=0.5, solver_it_max=100, ls_max=200, reg_ceil=1e6)
 
@@ -44,7 +46,7 @@ def test_gather_columns_dense_bitwise(sparse_problem, dtype):
     I = np.random.default_rng(0).choice(A.shape[1], 40, replace=False)
     want = np.asarray(jgather(JLoss(A, b, dtype=dtype).data,
                               jnp.asarray(I, jnp.int32)))
-    got = gather_columns_dense(LogisticRegression(A, b, dtype=dtype).data,
+    got = gather_columns_dense(LogisticRegression(A, b, dtype=dtype, device=CPU).data,
                                torch.from_numpy(I)).numpy()
     assert got.dtype == want.dtype and np.array_equal(got, want)
     np.testing.assert_array_equal(got, A[:, I].toarray().astype(dtype))
@@ -61,7 +63,7 @@ def test_logreg_partials_match_jax(sparse_problem, l2):
     Ax = A @ x
     gj, Hj, Bj = jpartials(jl.data, jl.b, jnp.asarray(Ax), jnp.asarray(x),
                            jnp.asarray(I, jnp.int32), l2=l2)
-    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2)
+    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2, device=CPU)
     g, H, B = logreg_partials(loss.data, loss.b_t, torch.from_numpy(Ax),
                               torch.from_numpy(x), torch.from_numpy(I), l2=l2)
     assert _rel_err(g.numpy(), gj) < 1e-12
@@ -89,9 +91,9 @@ def test_one_step_from_carried_state_matches(sparse_problem, l2, after):
         st = js.sscn_step(jl.data, jl.b, st, **kw)
     _, I = _jax_indices(st.key, A.shape[1], M)
     st_j = jax.device_get(js.sscn_step(jl.data, jl.b, st, **kw))
-    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2)
+    loss = LogisticRegression(A, b, dtype=np.float64, l2=l2, device=CPU)
     st_t = ts.sscn_step(loss.data, loss.b_t,
-                        sscn_state_from_numpy(jax.device_get(st)),
+                        sscn_state_from_numpy(jax.device_get(st), device=CPU),
                         torch.from_numpy(I), l2=l2,
                         accum_dtype=torch.float64, **STEP_KW)
     assert int(st_t.solver_it) == int(st_j.solver_it)
@@ -108,7 +110,7 @@ def test_trajectory_with_jax_indices(sparse_problem):
     jl = JLoss(A, b, dtype=np.float64)
     ja = js.SSCN(loss=jl, reg_coef=1e-3, subspace_dim=M, tqdm=False)
     st = ja.init_state(jnp.asarray(x0), 42)
-    loss = LogisticRegression(A, b, dtype=np.float64)
+    loss = LogisticRegression(A, b, dtype=np.float64, device=CPU)
     alg = SSCN(loss=loss, reg_coef=1e-3, subspace_dim=M)
     st_t = alg.init_state(x0, 42)
     kw = dict(STEP_KW, accum_dtype=jnp.float64)
@@ -155,7 +157,7 @@ def test_sscn_converges(small_problem):
     on the CPU."""
     A, b, x0 = small_problem
     fstar = _independent_fstar(A, b)
-    loss = LogisticRegression(A, b, dtype=np.float64)
+    loss = LogisticRegression(A, b, dtype=np.float64, device=CPU)
     alg = SSCN(loss=loss, reg_coef=1e-3, subspace_dim=20, label="sscn")
     trace = alg.run(x0=x0, it_max=100)
     alg.compute_loss_of_iterates()
@@ -171,7 +173,7 @@ def test_coordinates_from_seeded_cpu_generator(small_problem):
     A, b, x0 = small_problem
     out = []
     for seed in (7, 7, 8):
-        alg = SSCN(loss=LogisticRegression(A, b, dtype=np.float64),
+        alg = SSCN(loss=LogisticRegression(A, b, dtype=np.float64, device=CPU),
                    reg_coef=1e-3, subspace_dim=10, seeds=[seed])
         alg.run(x0=x0, it_max=5)
         out.append(alg.state.x)

@@ -138,3 +138,35 @@ def test_symv_kernel_on_card(cuda_device, n):
         symv(K.double(), q.double())
     with pytest.raises(ValueError):
         symv(K[:-1, :-1].contiguous(), q[:-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_symv_on_skew_built_K_on_card(cuda_device):
+    """SYMV on a K built on the card from heavily skewed input (one dense
+    panel, then thousands of one-entry columns): the build keeps K
+    bitwise symmetric, which is all the kernel asks of it."""
+    import scipy.sparse as sp
+
+    from krylov_crn_tpu_torch.ops.gram import _pack_flat_panels, _heavy_skew
+
+    rng = np.random.default_rng(3)
+    n, tail = 1000, 20000
+    head = sp.random(n, 2048, density=0.1, random_state=rng, format="csc",
+                     dtype=np.float32)
+    ones = sp.csc_matrix(
+        (rng.standard_normal(tail).astype(np.float32),
+         rng.integers(0, n, tail), np.arange(tail + 1)), shape=(n, tail))
+    A = sp.hstack([head, ones]).tocsr()
+    n_pad = pad_rows(n)
+    assert _heavy_skew(_pack_flat_panels(A, n_pad, np.float32)[4], A.nnz)
+    K = build_K_device(A, n_pad, np.float32, cuda_device)
+    assert torch.equal(K, K.T)
+    want = (A.astype(np.float64) @ A.T.astype(np.float64)).toarray()
+    err = np.abs(K.cpu().numpy()[:n, :n] - want).max()
+    assert err <= 1e-5 * np.abs(want).max()  # fp32 panel GEMMs
+    q = torch.rand(n_pad, device=cuda_device)
+    before = symv.launches
+    y = symv(K, q)
+    torch.cuda.synchronize()
+    assert symv.launches == before + 1
+    assert _rel(y, K, q) < 1e-6
