@@ -26,10 +26,11 @@ Phases (each raises on failure, so the exit code is non-zero):
             CPU run (held against the JAX package by the CPU tests): the
             certified fp32 optimum is no more than 1e-8 above the fp64 one;
 7. matvec   the dense matvec kernel against its plain version and an fp64
-            product, fp32 and bf16 K at (20480, 20480), w8a's (49749, 300)
-            and (300, 49749), and a ragged (1003, 3333): relative error
-            below 1e-6, bitwise reproducible; kernel and plain timed with
-            CUDA events (utils/profiling) at n = 20480 and on w8a's copies;
+            product, fp32 and bf16 K at (20480, 20480), the (5120, 20480)
+            row band of phase 18, w8a's (49749, 300) and (300, 49749), and
+            a ragged (1003, 3333): relative error below 1e-6, bitwise
+            reproducible; kernel, plain and torch.mv timed with CUDA events
+            (utils/profiling) at n = 20480, on the band and on w8a's copies;
 8. dense    the d-space path on the w8a-like stand-in (49749 x 300, fp32 on
             the card, dense branch): CubicKrylov(m=10) for 100 iterations
             and CubicNewton("full") for 20, every iterate's loss
@@ -51,9 +52,9 @@ Phases (each raises on failure, so the exit code is non-zero):
 10. measure the ported tools/measure_matvec.py rows at n = 20480;
 11. cli_gram the port's CLI run grid (cli.run_grid) on the rcv1-like stand-in
             at full width, fp32 on the card: GramCRN (tolerance 1e-8), SSCN
-            m=500 and GramKrylov run_fused, 14 iterations each. Requires
+            m=500 and GramKrylov run_fused, 12 iterations each. Requires
             GramCRN's certified exact gap (against phase 4's f*) <= 1e-8
-            within 14 iterations, exact values that never increase, and
+            within 12 iterations, exact values that never increase, and
             every K-matvec on the card launched through the SYMV kernel;
             prints GramCRN's seconds, CG iterations, host reads and
             rollbacks per iteration, and SSCN's gap beside the JAX
@@ -92,11 +93,39 @@ Phases (each raises on failure, so the exit code is non-zero):
             entries against an fp64 scipy HVP of the arrays copied back (rel
             <= 1e-5); at 1M x 1M with 100M entries two card HVPs bitwise
             equal, finite, and u^T (A^T (w * A v)) = (A u)^T (w * A v) within
-            1e-4 relative; prints the tool's JSON row and the bound.
+            1e-4 relative; prints the tool's JSON row and the bound;
+18. mesh    the multi-device layer (krylov_crn_tpu_torch/parallel) in four
+            ranks that share this card over gloo (NCCL refuses two ranks on
+            one device), started through parallel.launch. Four contexts
+            time-slice the card, so every time printed here is a
+            correctness run's, not a scaling figure.
+            (a) graft_entry.dryrun_multidevice(4, "cuda:0");
+            (b) the rcv1-like Gram race at full width on a row-banded K
+            (fp32, m=10, chunk 24, it_max 48, certify): a certified 1e-8
+            crossing against phase 4's f*, boundary values non-increasing,
+            exact values within 1e-5 relative of phase 4's single-device
+            race and at the same iterations; m + 1 all-gathers per step
+            (budget m + 2) and no all-reduce; every band product went
+            through the matvec kernel (launches == band calls == all-gathers
+            on every rank); each rank's band kernel against its plain
+            version (K_band @ q) and an fp64 product;
+            (c) the rcv1-like d-space CSR path row-sharded: CubicKrylov m=10
+            x 10 and SSCN m=500 x 20 against phases 9 and 12's single-card
+            results (fp64 loss of the last iterate within 1e-5 relative),
+            one all-reduce per HVP (11 per Krylov step, 2 per SSCN step);
+            (d) the stress-10m HVP (tools/stress10m_dryrun: 10M x 10M, 100M
+            entries, each rank's rows made on the card): one all-reduce,
+            within 1e-5 of the single-device HVP of the same entries, beside
+            its byte bound;
+            (e) prints whether NCCL is available and, if so, runs one
+            all-reduce and one all-gather through the mesh on a one-rank
+            NCCL group.
 
 The kernel records count the launches of every phase that drives a
 solver (each phase resets the counts just before and reads them just
-after). Prints a JSON line of kernel records, then a last line
+after). The matvec kernel has two records: the single-device paths'
+launches beside its times at 20480 x 20480, and the mesh path's band
+launches beside its times at the band's shape, (5120, 20480). Prints a JSON line of kernel records, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -122,7 +151,11 @@ RISE_TOL = 1e-12  # fp64 re-evaluation of fp32 iterates
 W8A_F_STAR = 0.5962522636038963
 F_STAR_TOL = 1e-11
 SPARSE_REL_TOL = 1e-6
-CLI_GRAM_ITS = 14
+# GramCRN's certified crossing is at iteration 12; iterations 13-14, where
+# fp32 CG runs to its cap, took 196-241 s and made way for phase 18
+CLI_GRAM_ITS = 12
+MESH_RANKS = 4
+MESH_REL_TOL = 1e-5  # fp32 runs in two summation orders, exact fp64 values
 SSCN_ITS = 20
 SKEW_K_TOL = 1e-5  # fp32-class error of the panel GEMMs
 STRESS_REL_TOL = 1e-5  # fp32 segment sums of ~100 products against fp64
@@ -374,7 +407,8 @@ def _gram_race(tag, name, dev):
                      fstar_s=fstar_s, iterations=alg.it, crossing_it=cross,
                      crossing_t=it_to_t.get(cross), f_star=f_star,
                      final_gap=gaps[-1], best_gap=min(gaps),
-                     exact_fs=fs, boundary_fs=bfs, launches=launches,
+                     exact_its=its, exact_fs=fs, boundary_fs=bfs,
+                     launches=launches,
                      race_launches=race_launches, kmatvec_calls=calls)
 
 
@@ -472,7 +506,9 @@ def phase_matvec(dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {"cases": {}, "max_abs_err": 0.0}
-    for n, m in ((20480, 20480), (49749, 300), (300, 49749), (1003, 3333)):
+    # (5120, 20480): the row band of rcv1-like's K under a mesh of four
+    for n, m in ((20480, 20480), (5120, 20480), (49749, 300), (300, 49749),
+                 (1003, 3333)):
         K32 = torch.randn((n, m), generator=gen, device=dev)
         x = torch.randn(m, generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -493,7 +529,7 @@ def phase_matvec(dev):
             out["cases"][key] = dict(splits=plan[0], rel_err=rel,
                                      rel_err_plain=rel_plain, max_abs_err=err)
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            if n == 20480:
+            if m == 20480 and (n == 20480 or dtype == torch.float32):
                 kms, pms = alternating_ms(lambda v: matvec(K, v),
                                            lambda v: matvec_plain(K, v), x)
                 out[f"ms_{key}"], out[f"plain_ms_{key}"] = kms, pms
@@ -1099,6 +1135,277 @@ def phase_stress1m(dev, card):
     return dict(row, rel_err_tenth=rel, adjoint_rel=adj, peak_gb=peak_gb)
 
 
+def _mesh_rank(mesh):
+    """One rank of phase ``mesh``, parts (b) and (c): the rcv1-like Gram
+    race on a row-banded K, the band kernel against its plain version,
+    and the row-sharded d-space Krylov and SSCN runs."""
+    import torch
+
+    from krylov_crn_tpu_torch import (
+        SSCN,
+        CubicKrylov,
+        GramKrylov,
+        LogisticRegression,
+    )
+    from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
+    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    from krylov_crn_tpu_torch.ops.matvec import matvec, matvec_plain
+    from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.parallel.sharded import build_sharded_dual
+    from krylov_crn_tpu_torch.solvers.krylov_gram import gram_krylov_step
+
+    dev = mesh.device
+    A, b = synthetic_logreg("rcv1-like", seed=0)
+    x0 = np.ones(A.shape[1]) * 0.5
+    out = {"rank": mesh.rank}
+
+    # (b) the Gram race on the row-banded K
+    loss = LogisticRegression(A, b, dtype=np.float32, device=dev)
+    alg = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0,
+                     mesh=mesh, label="gram-mesh")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alg.init_run(x0, 42)
+    alg.initialized = True
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    matvec.launches = symv.launches = 0
+    k_matvec.band_cuda_calls = k_matvec.cuda_calls = 0
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    trace = alg.run_fused(x0, it_max=48, chunk=24, certify=True)
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    m = trace.metrics
+    out["race"] = dict(
+        build_s=build_s, race_s=race_s, iterations=alg.it,
+        band_shape=tuple(alg.gd.K.shape), n_pad=alg.gd.n_padded,
+        exact_its=list(m["exact_its"]),
+        exact_fs=[float(v) for v in m["exact_fs"]],
+        boundary_fs=[float(v) for v in m["boundary_fs"]],
+        rollback_its=list(m["rollback_its"]),
+        loss_vals=[float(v) for v in trace.loss_vals],
+        launches=matvec.launches, band_calls=k_matvec.band_cuda_calls,
+        symv_launches=symv.launches, whole_calls=k_matvec.cuda_calls,
+        counts=mesh.counts_snapshot())
+    # one more step on its own: the per-step collective budget
+    mesh.reset_counts()
+    gram_krylov_step(alg.gd, alg.state, **alg._step_kwargs())
+    out["step_counts"] = mesh.counts_snapshot()
+
+    # this rank's band kernel against its plain version and fp64
+    K = alg.gd.K
+    q = torch.rand(K.shape[1], device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(11))
+    y, y2, yp = matvec(K, q), matvec(K, q), matvec_plain(K, q)
+    ref = K.double() @ q.double()
+    out["band_kernel"] = dict(
+        rel=_rel(y, ref), rel_plain=_rel(yp, ref),
+        max_abs_err=float((y - yp).abs().max()),
+        repeatable=bool(torch.equal(y, y2)))
+    del alg, K, loss
+    torch.cuda.empty_cache()
+
+    # (c) the d-space CSR path, row-sharded
+    sd = build_sharded_dual(A, mesh, dtype=np.float32)
+    loss = LogisticRegression(sd, b)
+    b01 = (np.asarray(b) > 0).astype(np.float64)
+    for key, cls, its, kw in (
+            ("krylov", CubicKrylov, 10, dict(subspace_dim=10)),
+            ("sscn", SSCN, SSCN_ITS, dict(subspace_dim=500))):
+        alg = cls(loss=loss, reg_coef=1e-3, tolerance=0, **kw)
+        alg.init_run(x0, 42)
+        alg.initialized = True
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alg.run(x0, it_max=its)
+        torch.cuda.synchronize()
+        out[key] = dict(seconds=time.perf_counter() - t0, iterations=alg.it,
+                        f=_f64_loss(A, b01, alg.state.x.cpu().numpy()),
+                        solver_it=int(alg.state.solver_it),
+                        counts=mesh.counts_snapshot())
+    out["local_rows"] = sd.row_counts[mesh.rank]
+    out["local_nnz"] = sd.local.nnz
+    return out
+
+
+def _nccl_probe(mesh):
+    """A one-rank NCCL group on the card: one all-reduce and one
+    all-gather through the mesh's functions."""
+    import torch
+    import torch.distributed as dist
+
+    from krylov_crn_tpu_torch.parallel.mesh import (
+        Mesh,
+        all_gather_rows,
+        all_reduce_sum,
+    )
+
+    dev = torch.device("cuda", 0)
+    one = Mesh(group=dist.group.WORLD, rank=0, world=1, device=dev,
+               backend="nccl")
+    t = torch.arange(4.0, device=dev)
+    ar, ag = all_reduce_sum(one, t), all_gather_rows(one, t)
+    torch.cuda.synchronize()
+    return dict(ok=bool(torch.equal(ar, t) and torch.equal(ag, t)
+                        and ar.is_cuda and ag.is_cuda),
+                counts=one.counts_snapshot())
+
+
+def phase_mesh(card, main_rec, sparse_rec, sscn_rec):
+    """Phase 18: the multi-device layer in four ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    from krylov_crn_tpu_torch.graft_entry import dryrun_multidevice
+    from krylov_crn_tpu_torch.parallel.launch import run_ranks
+    from krylov_crn_tpu_torch.tools import stress10m_dryrun
+
+    D = MESH_RANKS
+    out = {}
+    note = "four ranks time-slicing one card: a correctness run's time"
+
+    # (e) the backends
+    out["nccl_available"] = bool(dist.is_nccl_available())
+    print(f"mesh: torch.distributed.is_nccl_available() = "
+          f"{out['nccl_available']}")
+    if out["nccl_available"]:
+        (probe,) = run_ranks(_nccl_probe, 1, "nccl", "cuda:0", 300.0)
+        print(f"mesh: one-rank NCCL group: all-reduce and all-gather through "
+              f"the mesh ok = {probe['ok']}, counts "
+              f"{ {k: v['calls'] for k, v in probe['counts'].items()} }")
+        if not probe["ok"]:
+            raise RuntimeError("mesh: collectives failed on a one-rank NCCL "
+                               "group")
+        out["probe_nccl"] = probe
+
+    # (a) the dry run's four legs
+    t0 = time.perf_counter()
+    legs = dryrun_multidevice(D, "cuda:0", timeout=600.0)
+    out["dryrun"] = {k: legs[0][k] for k in ("dspace", "gram", "fused",
+                                             "libsvm")}
+    print(f"mesh: dryrun_multidevice({D}, 'cuda:0') in "
+          f"{time.perf_counter() - t0:.1f} s: {out['dryrun']}")
+
+    # (b) and (c) in one launch
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_rank, D, "gloo", "cuda:0", 900.0)
+    launch_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    race = r0["race"]
+    for r in ranks[1:]:
+        for key in ("exact_its", "exact_fs", "boundary_fs", "loss_vals"):
+            if r["race"][key] != race[key]:
+                raise RuntimeError(f"mesh: ranks disagree on the race's {key}")
+        for key in ("krylov", "sscn"):
+            if (r[key]["f"], r[key]["solver_it"]) != (r0[key]["f"],
+                                                      r0[key]["solver_it"]):
+                raise RuntimeError(f"mesh: ranks disagree on {key}")
+    f_star = main_rec["f_star"]
+    gaps = [f - f_star for f in race["exact_fs"]]
+    cross = next((it for it, g in zip(race["exact_its"], gaps) if g <= GAP),
+                 None)
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(race["exact_fs"], main_rec["exact_fs"]))
+    print(f"mesh race: rcv1-like on {D} bands {race['band_shape']} of n_pad "
+          f"{race['n_pad']}: build {race['build_s']:.3f} s, race "
+          f"{race['race_s']:.3f} s for {race['iterations']} iterations "
+          f"({note}; launch {launch_s:.1f} s); crossing at iteration {cross} "
+          f"(single device {main_rec['crossing_it']}), final gap "
+          f"{gaps[-1]:.3e}, exact values within {rel:.3e} relative of the "
+          f"single-device race; rollbacks {race['rollback_its']}")
+    steps = race["counts"]["all_gather"]["calls"] // 11
+    print(f"mesh race: per rank {race['launches']} matvec launches, "
+          f"{race['band_calls']} band calls, "
+          f"{race['counts']['all_gather']['calls']} all-gathers "
+          f"({steps} steps x 11, "
+          f"{race['counts']['all_gather']['bytes']} B), "
+          f"{race['counts']['all_reduce']['calls']} all-reduces; one step: "
+          f"{ {k: v['calls'] for k, v in r0['step_counts'].items()} }; symv "
+          f"launches {race['symv_launches']}")
+    if cross is None or cross > 48:
+        raise RuntimeError(f"mesh: no certified {GAP} gap within 48 "
+                           f"iterations (best {min(gaps):.3e})")
+    bfs = race["boundary_fs"]
+    if any(b2 > b1 for b1, b2 in zip(bfs, bfs[1:])):
+        raise RuntimeError(f"mesh: exact boundary values increased: {bfs}")
+    if race["exact_its"] != main_rec["exact_its"]:
+        raise RuntimeError("mesh: exact_its differ from the single-device "
+                           "race's")
+    if not rel <= MESH_REL_TOL:
+        raise RuntimeError(f"mesh: exact values {rel:.3e} relative from the "
+                           f"single-device race (limit {MESH_REL_TOL})")
+    for r in ranks:
+        rc, c = r["race"], r["race"]["counts"]
+        if not (rc["launches"] == rc["band_calls"]
+                == c["all_gather"]["calls"] > 0
+                and c["all_gather"]["calls"] % 11 == 0
+                and c["all_gather"]["max_numel"] == rc["n_pad"]
+                and c["all_reduce"]["calls"] == 0
+                and rc["symv_launches"] == rc["whole_calls"] == 0):
+            raise RuntimeError(f"mesh: rank {r['rank']} band products or "
+                               f"collectives off budget: {rc}")
+        sc = r["step_counts"]
+        if not (sc["all_gather"]["calls"] == 11
+                and sc["all_reduce"]["calls"] == 0):
+            raise RuntimeError(f"mesh: one Gram step's collectives: {sc}")
+        bk = r["band_kernel"]
+        print(f"mesh band kernel rank {r['rank']}: rel err {bk['rel']:.3e} "
+              f"(plain {bk['rel_plain']:.3e}), max |kernel - plain| "
+              f"{bk['max_abs_err']:.3e}, repeatable {bk['repeatable']}")
+        if not (bk["rel"] < MATVEC_TOL and bk["repeatable"]):
+            raise RuntimeError(f"mesh: band kernel off on rank {r['rank']}")
+    out.update(race=race, step_counts=r0["step_counts"], crossing_it=cross,
+               rel_vs_single=rel, launch_s=launch_s,
+               band_launches=sum(r["race"]["launches"] for r in ranks),
+               band_calls=sum(r["race"]["band_calls"] for r in ranks),
+               band_max_abs_err=max(r["band_kernel"]["max_abs_err"]
+                                    for r in ranks))
+
+    want = {"krylov": sparse_rec["f32_card"], "sscn": sscn_rec["f32_card"]}
+    budget = {"krylov": 11 * 10, "sscn": 2 * SSCN_ITS}
+    for key in ("krylov", "sscn"):
+        rec = r0[key]
+        rel = abs(rec["f"] - want[key]) / abs(want[key])
+        ar = rec["counts"]["all_reduce"]
+        print(f"mesh {key}: row-sharded rcv1-like (rows "
+              f"{[r['local_rows'] for r in ranks]}, nnz "
+              f"{[r['local_nnz'] for r in ranks]}): {rec['iterations']} "
+              f"iterations in {rec['seconds']:.3f} s ({note}), fp64 loss of "
+              f"the last iterate {rec['f']:.17g}, {rel:.3e} relative from "
+              f"the single-card run; {ar['calls']} all-reduces "
+              f"({ar['bytes']} B), "
+              f"{rec['counts']['all_gather']['calls']} all-gathers, "
+              f"solver_it {rec['solver_it']}")
+        if not rel <= MESH_REL_TOL:
+            raise RuntimeError(f"mesh {key}: {rel:.3e} relative from the "
+                               f"single-card run (limit {MESH_REL_TOL})")
+        if ar["calls"] != budget[key]:
+            raise RuntimeError(f"mesh {key}: {ar['calls']} all-reduces, "
+                               f"budget {budget[key]}")
+        out[key] = dict(rec, rel_vs_single=rel)
+
+    # (d) the stress-10m HVP
+    t0 = time.perf_counter()
+    row = stress10m_dryrun.run(10_000_000, 10_000_000, 100_000_000, D,
+                               "cuda:0", timeout=900.0)
+    print(f"mesh stress10m ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(row)}")
+    print(f"mesh stress10m: sharded HVP {row['hvp_s'] * 1e3:.3f} ms "
+          f"({note}) beside a one-card byte bound of "
+          f"{row['hvp_bound_ms_one_device']:.3f} ms; "
+          f"{row['all_reduces_per_hvp']} all-reduce of "
+          f"{row['all_reduce_bytes_per_hvp']} B; "
+          f"{row['rel_err_vs_single_device']:.3e} relative from the "
+          f"single-device HVP of the same entries")
+    if not row["ok"]:
+        raise RuntimeError(f"mesh stress10m: {row}")
+    out["stress10m"] = row
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON")
@@ -1134,10 +1441,14 @@ def main(argv=None):
     record["skew"] = phase_skew(dev)
     torch.cuda.empty_cache()
     record["stress1m"] = phase_stress1m(dev, card)
+    torch.cuda.empty_cache()
+    record["mesh"] = phase_mesh(card, record["main"], record["sparse"],
+                                record["sscn"])
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {record['seconds']:.1f} s")
     kk, mv, fig = record["kernel_on_K"], record["matvec"], record["figure2"]
     mv_bound = mv["bound_20480x20480_float32"]
+    band_bound = mv["bound_5120x20480_float32"]
     kernels = {"kernels": [{
         "name": "symv_upper", "route": "cuda",
         "source": "krylov_crn_tpu_torch/csrc/symv.cu",
@@ -1162,7 +1473,19 @@ def main(argv=None):
         "ms": min(mv["ms_20480x20480_float32"]),
         "plain_ms": min(mv["plain_ms_20480x20480_float32"]),
         "bound_ms": mv_bound[0], "bound_by": mv_bound[1],
-        "library_ms": mv["library_ms_20480x20480_float32"]}]}
+        "library_ms": mv["library_ms_20480x20480_float32"]}, {
+        # the same kernel at the mesh path's only shape, the row band of
+        # rcv1-like's K: its launches there beside its own times, taken
+        # by one process alone on the card in phase_matvec
+        "name": "matvec_band_5120x20480", "route": "cuda",
+        "source": "krylov_crn_tpu_torch/csrc/matvec.cu",
+        "replaces": "tools/measure_matvec.py:35",
+        "launches": record["mesh"]["band_launches"],
+        "max_abs_err": record["mesh"]["band_max_abs_err"],
+        "ms": min(mv["ms_5120x20480_float32"]),
+        "plain_ms": min(mv["plain_ms_5120x20480_float32"]),
+        "bound_ms": band_bound[0], "bound_by": band_bound[1],
+        "library_ms": mv["library_ms_5120x20480_float32"]}]}
     if args.out:
         import os
 

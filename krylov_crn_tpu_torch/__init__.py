@@ -1,6 +1,6 @@
 """krylov_crn_tpu_torch — the PyTorch / CUDA port of ``krylov_crn_tpu``.
 
-The cubic-regularized Newton solvers on one NVIDIA H100: the Gram-space
+The cubic-regularized Newton solvers on NVIDIA H100 cards: the Gram-space
 Krylov CRN and CRN-CG solvers (fp32 storage with compensated two-float
 reductions, exact host fp64 corrections) over the upper-triangle SYMV
 kernel (``csrc/symv.cu``), and the d-space Krylov, full-space CRN and SSCN
@@ -19,8 +19,15 @@ to find:
 * ``models``  — the logistic-regression oracle;
 * ``solvers`` — the run-loop base, ``GramKrylov``, ``GramCRN``,
                 ``CubicKrylov``, ``CubicNewton``, ``SSCN``;
+* ``parallel`` — the multi-device layer over ``torch.distributed``: the
+                ``Mesh`` and its counted collectives, ``run_ranks``,
+                ``ShardedDual`` (row-sharded A), per-rank LIBSVM loading;
+                the Gram solvers take ``mesh=`` (row-banded K);
 * ``utils``   — ``Trace``, checkpoints and device timing;
-* ``tools``   — ``measure_matvec``;
+* ``tools``   — ``measure_matvec``, ``measure_symv``, ``measure_large_n``,
+                ``run_figure2``, ``scaling_evidence``, ``stress10m_dryrun``;
+* ``graft_entry`` — a harness's entry points (one step; the multi-rank dry
+                run);
 * ``convert`` — carries the JAX package's data and solver states across.
 
 The JAX package is the reference; this package never imports ``jax``.

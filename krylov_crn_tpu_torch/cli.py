@@ -11,8 +11,16 @@ Usage:
 Everything runs on ``cuda:0``; without a card the CLI exits with an error
 unless ``--device cpu`` is given (the port's one flag beyond the JAX
 CLI's). ``run_grid`` runs the optimizers and needs neither matplotlib nor
-seaborn; ``main`` adds the figure. ``--mesh N`` (N > 0) is refused:
-multi-device runs are not ported yet.
+seaborn; ``main`` adds the figure.
+
+``--mesh N`` runs the grid in N ranks (``parallel/``): rows of A sharded
+on the d-space path, K row-banded on the Gram path. Started plainly, the
+CLI launches the N ranks itself (``parallel.launch``): a card per rank
+over NCCL when the host has N cards, else all ranks on ``cuda:0`` over
+gloo, or on the CPU with ``--device cpu``. Under ``torchrun
+--nproc-per-node N`` it joins the launcher's process group instead and
+requires N to equal the world size. Rank 0 alone prints, plots and writes
+``--results-dir``.
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ def build_parser():
                    help="storage dtype (default float32)")
     p.add_argument("--allow-download", action="store_true")
     p.add_argument("--mesh", default=0, type=int,
-                   help="shard rows over N devices (not ported: N > 0 "
-                        "exits with an error)")
+                   help="run in N ranks: rows of A (d-space path) or row "
+                        "bands of K (Gram path) split over them")
     p.add_argument("--no-bench-run", action="store_true",
                    help="skip the 5x-budget benchmark run used for f*")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
@@ -131,20 +139,32 @@ class Grid:
     use_gram: bool
 
 
-def run_grid(args) -> Grid:
+def run_grid(args, mesh=None) -> Grid:
     """Load the data and run the reference's grid (cubic_newton.py:63-111):
     CRN, SSCN for each --SSCN_dim, Krylov CRN and (unless --no-bench-run)
-    the 5x-budget Krylov run; f* = min over both oracles' best values."""
-    if args.mesh:
-        raise SystemExit(f"[cli] --mesh {args.mesh}: multi-device runs are "
-                         "not ported yet (ROADMAP A.14)")
-    dev = resolve_cli_device(args)
+    the 5x-budget Krylov run; f* = min over both oracles' best values.
+
+    ``mesh`` (several ranks, each calling this with the same ``args``):
+    the d-space path runs on row-sharded data, the Gram path on a
+    row-banded K, on the mesh's device; only rank 0 prints and saves."""
+    import builtins
+
+    if mesh is not None and not mesh.distributed:
+        mesh = None
+    if args.mesh and (mesh is None or mesh.world != args.mesh):
+        raise SystemExit(
+            f"[cli] --mesh {args.mesh} needs a mesh of {args.mesh} ranks "
+            f"(got {'none' if mesh is None else mesh.world}); cli.main "
+            "starts or joins them")
+    lead = mesh is None or mesh.rank == 0
+    print = builtins.print if lead else (lambda *a, **k: None)
+    dev = resolve_cli_device(args) if mesh is None else mesh.device
 
     m_list = args.SSCN_dim
     if isinstance(m_list, int):
         m_list = [m_list]
 
-    A, b = load_dataset(args)
+    A, b = load_dataset(args) if lead else _load_quietly(args)
     n, dim = A.shape
     print(f"[cli] {args.dataset}: n={n:,} d={dim:,} nnz={A.nnz:,} on {dev}")
 
@@ -160,12 +180,23 @@ def run_grid(args) -> Grid:
     # d-space path otherwise
     use_gram = args.solver == "gram" or (
         args.solver == "auto" and n <= 45056 and n <= 4 * dim)
-    loss = LogisticRegression(A, b, l2=args.l2, dtype=dtype, device=dev)
-    # the reference builds a CSC copy for SSCN (cubic_newton.py:55-59); the
-    # device data already stores the transpose, so the second oracle shares
-    # it and only serves the f* = min(f_opt, f_opt_csc) protocol
-    loss_csc = LogisticRegression(A, b, l2=args.l2, dtype=dtype, device=dev)
-    loss_csc.data = loss.data
+    if mesh is not None and not use_gram:
+        from krylov_crn_tpu_torch.parallel.sharded import build_sharded_dual
+
+        loss = LogisticRegression(build_sharded_dual(A, mesh, dtype=dtype),
+                                  b, l2=args.l2)
+        # the sharded oracle serves SSCN's partials too; a second instance
+        # would only duplicate the f* bookkeeping
+        loss_csc = loss
+    else:
+        loss = LogisticRegression(A, b, l2=args.l2, dtype=dtype, device=dev)
+        # the reference builds a CSC copy for SSCN (cubic_newton.py:55-59);
+        # the device data already stores the transpose, so the second
+        # oracle shares it and only serves the f* = min(f_opt, f_opt_csc)
+        # protocol
+        loss_csc = LogisticRegression(A, b, l2=args.l2, dtype=dtype,
+                                      device=dev)
+        loss_csc.data = loss.data
 
     x0 = np.ones(dim) * 0.5
     it_max, time_max = args.it_max, args.time_max
@@ -173,8 +204,9 @@ def run_grid(args) -> Grid:
     # ---- algorithms (constructor grid of cubic_newton.py:63-88) ----
     memory_size = args.krylov_dim
     krylov_cls = GramKrylov if use_gram else CubicKrylov
-    krylov_kw = dict(device=dev) if use_gram else {}
-    print(f"[cli] solver path: {'gram' if use_gram else 'coo'}")
+    krylov_kw = dict(device=dev, mesh=mesh) if use_gram else {}
+    print(f"[cli] solver path: {'gram' if use_gram else 'coo'}"
+          + (f" (mesh={mesh.world})" if mesh is not None else ""))
     cub_krylov = krylov_cls(loss=loss, reg_coef=1e-3,
                             label=f"Krylov CRN (m = {memory_size})",
                             subspace_dim=memory_size, tolerance=1e-9,
@@ -185,6 +217,10 @@ def run_grid(args) -> Grid:
         label=f"Benchmark Krylov CRN (m = {memory_size_bench})",
         subspace_dim=memory_size_bench, tolerance=1e-9, **krylov_kw)
     cubic_solver = "full" if dim < 500 else "CG"
+    if cubic_solver == "full" and mesh is not None and not use_gram:
+        # row-sharded data keeps no dense copy of A for the dense Hessian
+        print("[cli] row-sharded data: CRN runs its CG backend")
+        cubic_solver = "CG"
     if cubic_solver == "CG" and use_gram:
         cub_root = GramCRN(loss=loss, reg_coef=1e-3, label="CRN",
                            tolerance=1e-8, **krylov_kw)
@@ -229,7 +265,7 @@ def run_grid(args) -> Grid:
             bench.run(x0=x0, it_max=5 * it_max, t_max=5 * time_max)
             bench.compute_loss_of_iterates()
 
-    if args.results_dir:
+    if args.results_dir and lead:
         for alg in [cub_root, cub_krylov, *sscn_list]:
             alg.trace.save(f"{alg.label}.pkl", path=args.results_dir)
 
@@ -291,9 +327,60 @@ def plot_grid(args, grid: Grid) -> str:
     return out
 
 
-def main(argv=None):
+def _load_quietly(args):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return load_dataset(args)
+
+
+def _rank_main(mesh, argv):
+    """One rank of ``--mesh N``: the grid, and on rank 0 the figure.
+    Returns the grid's f* and iteration counts."""
     args = build_parser().parse_args(argv)
-    plot_grid(args, run_grid(args))
+    grid = run_grid(args, mesh)
+    if mesh is None or mesh.rank == 0:
+        plot_grid(args, grid)
+    return dict(f_opt=grid.f_opt, use_gram=grid.use_gram,
+                its={alg.label: alg.it
+                     for alg in (grid.crn, grid.krylov, *grid.sscn)})
+
+
+def main(argv=None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if not args.mesh:
+        _rank_main(None, argv)
+        return 0
+    import torch
+
+    if "RANK" in os.environ:
+        # started by torchrun: join its process group
+        from krylov_crn_tpu_torch.parallel.mesh import make_mesh
+        from krylov_crn_tpu_torch.parallel.multihost import init_distributed
+
+        init_distributed(backend="gloo" if args.device == "cpu" else None)
+        # on the card: cuda:<rank> under NCCL, the shared cuda:0 under gloo
+        device = "cpu" if args.device == "cpu" else None
+        _rank_main(make_mesh(args.mesh, device), argv)
+        torch.distributed.destroy_process_group()
+        return 0
+    from krylov_crn_tpu_torch.parallel.launch import (
+        backend_for,
+        card_layout,
+        run_ranks,
+    )
+
+    if args.device == "cpu":
+        device = "cpu"
+    else:
+        resolve_cli_device(args)
+        device = card_layout(args.mesh)
+    run_ranks(_rank_main, args.mesh, backend_for(device), device,
+              max(3600.0, 20 * args.time_max), argv)
     return 0
 
 

@@ -5,9 +5,7 @@
     H(x)  = A^T diag(w) A / n + l2 I,   w = sigma(Ax) (1 - sigma(Ax))
     Hv    = A^T (w * (A v)) / n + l2 v          (never materializes H)
 
-Port of ``krylov_crn_tpu/models/logistic.py`` (single device; the
-row-sharded branch of the SSCN partials waits for multi-device). Two
-layers, as there:
+Port of ``krylov_crn_tpu/models/logistic.py``. Two layers, as there:
 
 * a **functional core** of module-level functions on the ``DualSparse``
   data; the d-space solvers thread the margins ``Ax`` through their state;
@@ -19,6 +17,15 @@ The class also keeps the host scipy matrix ``A_host`` and the labels as a
 host array ``b``: the Gram solver builds K and evaluates exact values from
 them and never touches the device data, which is built lazily on first
 use of ``.data`` on the oracle's ``device``.
+
+Row-sharded data (``parallel.sharded.ShardedDual``): margins, labels and
+the row mask are this rank's block, x and every d-vector are replicated.
+Sums over rows then cross the ranks, one collective each: the value's
+two-float pair (the ranks' pairs gathered and folded in rank order, so an
+fp32 value is the same bits on every rank and on every run), the
+gradient's and the HVP's d-vector (inside ``rmatvec``), SSCN's g_I and
+H_I, and the row-norm maximum. Padding rows are masked out everywhere
+(sigma(0) - 0 = 0.5 and w(0) = 0.25 would otherwise pollute the sums).
 
 Reductions accumulate in the storage dtype: compensated two-float pairs
 in fp32 (``ops/math.py``), fp64 in fp64 runs.
@@ -50,8 +57,20 @@ from krylov_crn_tpu_torch.ops.spmv import (
     row_sqnorms,
     spmv,
 )
+from krylov_crn_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_max,
+    all_reduce_sum,
+)
+from krylov_crn_tpu_torch.parallel.sharded import (
+    ShardedDual,
+    pad_rowvec,
+    sharded_gather_columns,
+    sharded_row_sqnorms,
+)
 
-__all__ = ["LogisticRegression", "logreg_value_from_margins",
+__all__ = ["LogisticRegression", "data_mask", "value_args",
+           "logreg_value_from_margins",
            "logreg_value", "logreg_gradient_from_margins",
            "logreg_gradient", "hessian_weights", "logreg_hvp",
            "logreg_hessian_dense", "logreg_partials"]
@@ -59,11 +78,40 @@ __all__ = ["LogisticRegression", "logreg_value_from_margins",
 
 # ------------------------------ functional core ------------------------------
 
+def data_mask(data):
+    """Row-validity mask of a padded sharded layout; None on one device."""
+    return getattr(data, "mask", None)
+
+
+def value_args(data) -> dict:
+    """``logreg_value_from_margins``'s keywords for ``data``: the row mask
+    and the mesh of sharded data, and the global row count."""
+    return dict(mask=data_mask(data), n=data.n,
+                mesh=getattr(data, "mesh", None))
+
+
+def _fold_pairs(mesh, hi, lo):
+    """The sum of every rank's two-float pair: one all-gather of the
+    pairs, then a two-sum fold in rank order, the same arithmetic on the
+    same bytes on every rank."""
+    pairs = all_gather_rows(mesh, torch.stack([hi, lo]).reshape(1, 2))
+    hi, lo = pairs[0, 0], pairs[0, 1]
+    for r in range(1, pairs.shape[0]):
+        hi, e = two_sum(hi, pairs[r, 0])
+        lo = lo + pairs[r, 1] + e
+    return hi, lo
+
+
 def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
-                              n: int | None = None):
+                              n: int | None = None, mesh=None):
     """f from cached margins as a two-float (hi, lo) pair. Terms are
     scaled by 1/n before the reduction, so per-term rounding enters at
-    eps*|term|/n; in fp64 the pair is a compensated fp64 sum."""
+    eps*|term|/n; in fp64 the pair is a compensated fp64 sum.
+
+    ``mask`` and ``n`` handle padded sharded rows (padding would otherwise
+    add -logsig(0) = log 2 each; ``n`` is the global row count, never the
+    block's). With a ``mesh`` of several ranks the margins are this rank's
+    block and the ranks' pairs are folded into the global value."""
     adt = Ax.dtype
     terms = (1.0 - b) * Ax - logsig(Ax)
     if mask is not None:
@@ -75,6 +123,8 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
     # every term alike (up to 6e-8 relative; it does not average out)
     terms = terms.to(adt) / torch.full((), n, dtype=adt, device=terms.device)
     hi, lo = accum_sum_pair(terms, adt)
+    if mesh is not None and mesh.distributed:
+        hi, lo = _fold_pairs(mesh, hi, lo)
     if l2:
         t = (l2 / 2.0) * accum_dot(x, x, adt).to(adt)
         hi, e = two_sum(hi, t)
@@ -82,22 +132,25 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
     return hi, lo
 
 
-def logreg_value(data: DualSparse, b, x, l2: float = 0.0):
+def logreg_value(data, b, x, l2: float = 0.0):
     """(f(x), Ax)."""
     Ax = spmv(data, x)
-    hi, lo = logreg_value_from_margins(b, Ax, x, l2, n=data.n)
+    hi, lo = logreg_value_from_margins(b, Ax, x, l2, **value_args(data))
     return hi + lo, Ax
 
 
-def logreg_gradient_from_margins(data: DualSparse, b, Ax, x,
-                                 l2: float = 0.0):
-    g = rmatvec(data, sigmoid(Ax) - b) / data.n
+def logreg_gradient_from_margins(data, b, Ax, x, l2: float = 0.0):
+    residual = sigmoid(Ax) - b
+    mask = data_mask(data)
+    if mask is not None:
+        residual = residual * mask
+    g = rmatvec(data, residual) / data.n
     if l2:
         g = g + l2 * x
     return g
 
 
-def logreg_gradient(data: DualSparse, b, x, l2: float = 0.0):
+def logreg_gradient(data, b, x, l2: float = 0.0):
     """(g(x), Ax)."""
     Ax = spmv(data, x)
     return logreg_gradient_from_margins(data, b, Ax, x, l2), Ax
@@ -111,9 +164,9 @@ def hessian_weights(Ax, mask=None):
     return w
 
 
-def logreg_hvp(data: DualSparse, Ax, v, l2: float = 0.0):
+def logreg_hvp(data, Ax, v, l2: float = 0.0):
     """Exact HVP from cached margins (two products; loss.py:289-302)."""
-    return hvp_sparse(data, hessian_weights(Ax), v, l2=l2)
+    return hvp_sparse(data, hessian_weights(Ax, data_mask(data)), v, l2=l2)
 
 
 def logreg_hessian_dense(data: DualSparse, Ax, l2: float = 0.0):
@@ -129,7 +182,7 @@ def logreg_hessian_dense(data: DualSparse, Ax, l2: float = 0.0):
     return H
 
 
-def logreg_partials(data: DualSparse, b, Ax, x, I, l2: float = 0.0,
+def logreg_partials(data, b, Ax, x, I, l2: float = 0.0,
                     k_pad: int | None = None):
     """Coordinate-subspace gradient, Hessian and column panel for SSCN:
     (g_I, H_I, B) with B = dense A[:, I] (ops/coords.py) and
@@ -138,15 +191,25 @@ def logreg_partials(data: DualSparse, b, Ax, x, I, l2: float = 0.0,
         H_I = Bᵀ diag(w) B / n + l2 I_m              (loss.py:257-264)
 
     B stays in the storage dtype; the products are plain matmuls, as XLA
-    computes them in the JAX package."""
-    B = gather_columns_dense(data, I, k_pad)
-    residual = sigmoid(Ax) - b
-    w = hessian_weights(Ax)
-    g = B.T @ residual / data.n
+    computes them in the JAX package.
+
+    Row-sharded data: the panel assembles from this rank's block with no
+    collective (``sharded_gather_columns``) and stays row-sharded; the two
+    B^T reductions then take one all-reduce each."""
+    if isinstance(data, ShardedDual):
+        B = sharded_gather_columns(data, I)
+        residual = (sigmoid(Ax) - b) * data.mask
+        w = hessian_weights(Ax, data.mask)
+        g = all_reduce_sum(data.mesh, B.T @ residual) / data.n
+        H = all_reduce_sum(data.mesh, (B * w[:, None]).T @ B) / data.n
+    else:
+        B = gather_columns_dense(data, I, k_pad)
+        residual = sigmoid(Ax) - b
+        w = hessian_weights(Ax)
+        g = B.T @ residual / data.n
+        H = (B * w[:, None]).T @ B / data.n
     if l2:
         g = g + l2 * x[I]
-    H = (B * w[:, None]).T @ B / data.n
-    if l2:
         H = H + l2 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
     return g, H, B
 
@@ -176,22 +239,41 @@ class LogisticRegression(Oracle):
     def __init__(self, A, b, dtype=np.float32, device=None,
                  store_mat_vec_prod=True, want_dense=None, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.dtype = np.dtype(dtype)
-        self.device = resolve_device(device)
-        self.A_host = (A.tocsr() if sp.issparse(A)
-                       else sp.csr_matrix(np.asarray(A)))
-        self.b = canonicalize_labels(np.asarray(b)).astype(self.dtype)
-        self.n, self.dim = map(int, self.A_host.shape)
-        self.store_mat_vec_prod = store_mat_vec_prod
-        self._want_dense = want_dense
         self._data = None
         self._b_t = None
+        self.mesh = None
+        if isinstance(A, ShardedDual):
+            # distributed oracle: this rank's row block, with its dtype and
+            # device, and the padded row-sharded labels. A tensor of the
+            # block's height (parallel.multihost.load_sharded_libsvm makes
+            # one) is taken as it is: no rank holds the whole label vector
+            # then. Anything else is the global label vector.
+            self.dtype = np.dtype(str(A.dtype).removeprefix("torch."))
+            self.device = A.device
+            self.mesh = A.mesh
+            self.A_host = None
+            self._data = A
+            if torch.is_tensor(b) and b.shape[0] == A.n_local:
+                self._b_t = b.to(A.device, A.dtype)
+            else:
+                self._b_t = pad_rowvec(canonicalize_labels(np.asarray(b)), A)
+            self.b = self._b_t.cpu().numpy()
+            self.n, self.dim = A.shape
+        else:
+            self.dtype = np.dtype(dtype)
+            self.device = resolve_device(device)
+            self.A_host = (A.tocsr() if sp.issparse(A)
+                           else sp.csr_matrix(np.asarray(A)))
+            self.b = canonicalize_labels(np.asarray(b)).astype(self.dtype)
+            self.n, self.dim = map(int, self.A_host.shape)
+        self.store_mat_vec_prod = store_mat_vec_prod
+        self._want_dense = want_dense
         self.reset()
 
     @property
-    def data(self) -> DualSparse:
-        """Device data (A, A^T and the small-d dense copies), built on
-        first use."""
+    def data(self):
+        """Device data (A, A^T and the small-d dense copies, or this
+        rank's ``ShardedDual``), built on first use."""
         if self._data is None:
             self._data = build_dual(self.A_host, dtype=self.dtype,
                                     device=self.device,
@@ -199,7 +281,7 @@ class LogisticRegression(Oracle):
         return self._data
 
     @data.setter
-    def data(self, value: DualSparse):
+    def data(self, value):
         """Share another oracle's device data (same A, dtype and device)
         instead of building a second copy."""
         if value.shape != (self.n, self.dim):
@@ -237,7 +319,9 @@ class LogisticRegression(Oracle):
         """Incremental margin update Ax += A[:, I] @ delta
         (loss.py:279-281); the next margins read reuses it."""
         I = torch.as_tensor(I, dtype=torch.int64, device=self.device)
-        B = gather_columns_dense(self.data, I)
+        data = self.data
+        B = (sharded_gather_columns(data, I) if isinstance(data, ShardedDual)
+             else gather_columns_dense(data, I))
         self._mat_vec_prod = self.vec(Ax) + B @ self.vec(delta)
         self.reuse = True
 
@@ -251,7 +335,7 @@ class LogisticRegression(Oracle):
         x = self.vec(x)
         Ax = self.mat_vec_product(x)
         hi, lo = logreg_value_from_margins(self.b_t, Ax, x, l2=self.l2,
-                                           n=self.n)
+                                           **value_args(self.data))
         # the pair combined on the host: full precision in fp32 runs too
         return float(hi) + float(lo)
 
@@ -290,6 +374,17 @@ class LogisticRegression(Oracle):
         return self._partials(x, I)[1]
 
     # ---- smoothness constants (loss.py:308-347) ----
+    def _row_sqnorms(self):
+        data = self.data
+        return (sharded_row_sqnorms(data) if isinstance(data, ShardedDual)
+                else row_sqnorms(data.a))
+
+    def _over_rows(self, reduce, collective) -> float:
+        """A reduction of the per-row squared norms over all rows: local,
+        then (sharded data) one collective over the ranks."""
+        t = reduce(self._row_sqnorms())
+        return float(t if self.mesh is None else collective(self.mesh, t))
+
     @property
     def smoothness(self):
         if self._smoothness is None:
@@ -297,8 +392,8 @@ class LogisticRegression(Oracle):
                 warnings.warn(
                     "The matrix is too large to estimate the smoothness "
                     "constant, so Frobenius estimate is used instead.")
-                vals = self.data.a.values().to(torch.float32)
-                fro2 = float(torch.sum(vals * vals))
+                fro2 = self._over_rows(
+                    lambda r: r.to(torch.float32).sum(), all_reduce_sum)
                 self._smoothness = 0.25 * fro2 / self.n + self.l2
             else:
                 data = self.data
@@ -311,14 +406,14 @@ class LogisticRegression(Oracle):
     @property
     def max_smoothness(self):
         if self._max_smoothness is None:
-            mx = float(torch.max(row_sqnorms(self.data.a)))
+            mx = self._over_rows(torch.max, all_reduce_max)
             self._max_smoothness = 0.25 * mx + self.l2
         return self._max_smoothness
 
     @property
     def average_smoothness(self):
         if self._ave_smoothness is None:
-            av = float(torch.sum(row_sqnorms(self.data.a))) / self.n
+            av = self._over_rows(torch.sum, all_reduce_sum) / self.n
             self._ave_smoothness = 0.25 * av + self.l2
         return self._ave_smoothness
 
@@ -329,6 +424,11 @@ class LogisticRegression(Oracle):
         ``A_host`` (the Gram path never builds the device data): the
         Frobenius estimate when both n and d exceed 20000, else the
         largest singular value by power iteration."""
+        if self._hessian_lipschitz is None and self.A_host is None:
+            # sharded data: no rank holds A, so from the device constants
+            a_max = np.sqrt(self._over_rows(torch.max, all_reduce_max))
+            self._hessian_lipschitz = (
+                (self.smoothness - self.l2) * 4 * a_max / (6 * np.sqrt(3)))
         if self._hessian_lipschitz is None:
             A = self.A_host.astype(np.float64)
             row_sq = np.asarray(A.multiply(A).sum(axis=1)).ravel()

@@ -15,6 +15,14 @@ operation over the dense n x n Gram matrix K = A A^T:
 The feature dimension d appears only in the K build and when an explicit
 iterate is materialized. Per Krylov-CRN iteration the solver runs m + 1
 K-matvecs, each through the SYMV kernel on a card (ops/symv.py).
+
+Under a mesh of D ranks (``build_gram(mesh=)``) K is **row-banded**: rank
+r keeps rows [r n_pad/D, (r+1) n_pad/D) and everything else (Ax0, b, mask,
+every solver vector) is replicated. A K-matvec is then the band's product
+with the replicated vector, a rectangular dense matvec through the matvec
+kernel on a card (ops/matvec.py), followed by one all-gather of the
+n_pad/D-row results. SYMV is off under a mesh, as in the JAX package: a
+band holds no whole upper triangle.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import torch
 
 from krylov_crn_tpu_torch.config import as_torch_dtype, resolve_device
 from krylov_crn_tpu_torch.ops.math import accum_dot
+from krylov_crn_tpu_torch.ops.matvec import matvec
 from krylov_crn_tpu_torch.ops.symv import symv
+from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows
 
 __all__ = ["GramData", "build_gram", "build_K_device", "Rep", "rep_dot",
            "rep_scale", "rep_sub", "rep_axpy", "k_matvec", "gram_lanczos",
@@ -51,7 +61,9 @@ def pad_rows(n: int) -> int:
 class GramData:
     """Dense Gram-space problem data (rows padded to n_pad)."""
 
-    K: torch.Tensor  # (n_pad, n_pad) Gram matrix A A^T, bitwise symmetric
+    # (n_pad, n_pad) Gram matrix A A^T, bitwise symmetric; under a mesh of
+    # D ranks this rank's (n_pad / D, n_pad) row band of it
+    K: torch.Tensor
     Ax0: torch.Tensor  # (n_pad,) margins of the base point x0
     b: torch.Tensor  # (n_pad,) labels in {0,1}, 0 on padding
     mask: torch.Tensor  # (n_pad,) 1 on real rows
@@ -59,10 +71,11 @@ class GramData:
     n: int
     d: int
     nnz: int
+    mesh: object | None = None  # parallel.mesh.Mesh of several ranks
 
     @property
     def n_padded(self) -> int:
-        return self.K.shape[0]
+        return self.Ax0.shape[0]
 
 
 def _heavy_skew(lens, nnz: int) -> bool:
@@ -136,17 +149,28 @@ def build_K_device(A, n_pad: int, dtype, device):
 
 
 def build_gram(A, b, x0, dtype=np.float32, device=None,
-               device_build: bool | None = None) -> GramData:
+               device_build: bool | None = None, mesh=None) -> GramData:
     """GramData from a scipy CSR matrix on ``device``.
 
     ``device_build`` (default: True on a card) builds K on the device
     (build_K_device); otherwise K is scipy's ``A @ A.T`` on the host, as
-    the JAX package's ``build_gram(device_build=False)`` does."""
+    the JAX package's ``build_gram(device_build=False)`` does.
+
+    ``mesh`` (several ranks; every rank calls this with the same A): the
+    data lies on the mesh's device and K is this rank's row band. Each
+    rank still builds the whole K and keeps a copy of its band, so a band
+    holds the bits of the single-device K."""
     A = A.tocsr()
     n, d = map(int, A.shape)
     n_pad = pad_rows(n)
     x0 = np.asarray(x0, np.float64)
-    dev = resolve_device(device)
+    if mesh is not None and not mesh.distributed:
+        mesh = None
+    if mesh is not None and n_pad % mesh.world:
+        raise ValueError(
+            f"build_gram: the {mesh.world} ranks of the mesh do not divide "
+            f"n_pad = {n_pad} (n = {n} padded to a multiple of {ROW_ALIGN})")
+    dev = resolve_device(device if mesh is None else mesh.device)
     if device_build is None:
         device_build = dev.type == "cuda"
     if device_build:
@@ -155,6 +179,9 @@ def build_gram(A, b, x0, dtype=np.float32, device=None,
         Kp = np.zeros((n_pad, n_pad), dtype)
         Kp[:n, :n] = np.asarray((A @ A.T).todense(), dtype)
         K = torch.from_numpy(Kp).to(dev)
+    if mesh is not None:
+        band = n_pad // mesh.world
+        K = K[mesh.rank * band:(mesh.rank + 1) * band].clone()
     Ax0 = np.zeros(n_pad, dtype)
     Ax0[:n] = A @ x0
     bp = np.zeros(n_pad, dtype)
@@ -166,20 +193,30 @@ def build_gram(A, b, x0, dtype=np.float32, device=None,
         K=K, Ax0=aux[0], b=aux[1], mask=aux[2],
         x0_sqnorm=torch.tensor(float(x0 @ x0), dtype=as_torch_dtype(dtype),
                                device=dev),
-        n=n, d=d, nnz=int(A.nnz))
+        n=n, d=d, nnz=int(A.nnz), mesh=mesh)
 
 
-def k_matvec(K, q):
-    """K @ q: the SYMV kernel for tensors on a card, its plain version on
-    the CPU (ops/symv.py). ``k_matvec.cuda_calls`` counts the calls on a
-    card, so a run can show that each went through the kernel
-    (``symv.launches``)."""
+def k_matvec(K, q, mesh=None):
+    """K @ q. One device: the SYMV kernel for tensors on a card, its plain
+    version on the CPU (ops/symv.py). Under a ``mesh`` of several ranks K
+    is this rank's row band: the band's product with the replicated q (the
+    dense matvec kernel on a card, ops/matvec.py), then one all-gather of
+    the ranks' rows into the replicated result.
+
+    ``k_matvec.cuda_calls`` and ``k_matvec.band_cuda_calls`` count the
+    whole-K and the band calls on a card, so a run can show that each went
+    through its kernel (``symv.launches``, ``matvec.launches``)."""
+    if mesh is not None and mesh.distributed:
+        if K.is_cuda:
+            k_matvec.band_cuda_calls += 1
+        return all_gather_rows(mesh, matvec(K, q))
     if K.is_cuda:
         k_matvec.cuda_calls += 1
     return symv(K, q)
 
 
 k_matvec.cuda_calls = 0
+k_matvec.band_cuda_calls = 0
 
 
 class Rep(NamedTuple):

@@ -1,8 +1,11 @@
 """Sparse matrix products: SpMV, transpose SpMV, fused logistic HVP.
 
-Port of ``krylov_crn_tpu/ops/spmv.py`` (single device; the sharded
-branches are not ported yet). Two branches, picked by the data:
+Port of ``krylov_crn_tpu/ops/spmv.py``. Three branches, picked by the
+data:
 
+* **sharded** (``parallel.sharded.ShardedDual``): the local product on this
+  rank's row block; ``A^T z`` then takes one all-reduce of the d-vector,
+  ``A x`` none. A fused HVP therefore costs exactly one collective;
 * **dense** (``DualSparse.dense`` present, small d): ``A x`` on the dense
   copy of A and ``A^T z`` on the dense copy of A^T, both through the
   hand-written matvec kernel (``ops/matvec.py``) on a card;
@@ -48,21 +51,34 @@ def dense_matvec(K, x):
 dense_matvec.cuda_calls = 0
 
 
-def spmv(data: DualSparse, x: torch.Tensor) -> torch.Tensor:
-    """Ax: the dense matvec when the dense copy exists, else CSR."""
+def _sharded():
+    # imported at call time: parallel.sharded builds on this module
+    from krylov_crn_tpu_torch.parallel import sharded
+
+    return sharded
+
+
+def spmv(data, x: torch.Tensor) -> torch.Tensor:
+    """Ax: the row-sharded local product, the dense matvec when the dense
+    copy exists, else CSR."""
+    if not isinstance(data, DualSparse):
+        return _sharded().sharded_spmv(data, x)
     if data.dense is not None:
         return dense_matvec(data.dense, x)
     return spmv_csr(data.a, x)
 
 
-def rmatvec(data: DualSparse, z: torch.Tensor) -> torch.Tensor:
-    """A^T z (d-vector) through the stored transpose: no scatter."""
+def rmatvec(data, z: torch.Tensor) -> torch.Tensor:
+    """A^T z (d-vector) through the stored transpose: no scatter. Sharded
+    data all-reduces the d-vector over the ranks."""
+    if not isinstance(data, DualSparse):
+        return _sharded().sharded_rmatvec(data, z)
     if data.dense_t is not None:
         return dense_matvec(data.dense_t, z)
     return spmv_csr(data.at, z)
 
 
-def hvp_sparse(data: DualSparse, w: torch.Tensor, v: torch.Tensor,
+def hvp_sparse(data, w: torch.Tensor, v: torch.Tensor,
                l2: float = 0.0, n_scale: float | None = None) -> torch.Tensor:
     """Generalized-linear-model HVP  A^T (w * (A v)) / n + l2 * v, never
     materializing the Hessian (reference loss.py:289-302)."""

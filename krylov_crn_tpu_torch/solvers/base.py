@@ -11,6 +11,12 @@ the host loop reads back scalars only for convergence and tracing.
 two-float value pair) instead of the iterates; ``warm`` runs one throwaway
 step so one-time costs (kernel builds, cuSOLVER/cuBLAS handles) land
 outside a timed ``run``. The JAX package's tqdm progress bar is left out.
+
+Under a mesh of several ranks (``self.mesh``, taken from a sharded oracle
+or given to the Gram solvers) every rank runs this loop and must take the
+same branches. Iteration counts and tolerances read replicated values;
+the clock does not, so a run with a finite ``t_max`` uses rank 0's
+elapsed time on every rank (``elapsed``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any
 
 import numpy as np
 
+from krylov_crn_tpu_torch.parallel.mesh import broadcast_scalar
 from krylov_crn_tpu_torch.utils.trace import Trace
 
 __all__ = ["Optimizer"]
@@ -35,6 +42,8 @@ class Optimizer:
         self.save_first_iterations = save_first_iterations
         self.label = label
         self.store_iterates = store_iterates
+        self.mesh = getattr(loss, "mesh", None)
+        self.t_max = np.inf
 
         self.initialized = False
         self.trace = Trace(loss=loss, label=label)
@@ -102,9 +111,19 @@ class Optimizer:
         solver overrides this to materialize its (gamma, zeta) rep."""
         return getattr(self.state, "x", None)
 
+    def elapsed(self):
+        """Seconds since the run's start; with several ranks and a finite
+        ``t_max``, rank 0's reading on every rank (the time stop and the
+        trace thinning branch on it)."""
+        t = time.perf_counter() - self.t_start
+        if (self.mesh is not None and self.mesh.distributed
+                and np.isfinite(self.t_max)):
+            t = broadcast_scalar(self.mesh, t)
+        return t
+
     def check_convergence(self):
         no_it_left = self.it >= self.it_max
-        no_time_left = time.perf_counter() - self.t_start >= self.t_max
+        no_time_left = self.elapsed() >= self.t_max
         tolerance_met = False
         if self.tolerance > 0 and self.it > 0:
             tolerance_met = float(self.state.diff_norm) < self.tolerance
@@ -137,7 +156,7 @@ class Optimizer:
 
     def save_checkpoint(self):
         self.it += 1
-        self.t = time.perf_counter() - self.t_start
+        self.t = self.elapsed()
         if self.should_update_trace():
             self.update_trace()
         self.max_progress = max(self.time_progress, self.iterations_progress)

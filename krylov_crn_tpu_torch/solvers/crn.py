@@ -11,7 +11,9 @@ Two subproblem backends, the reference's switch (cubic_newton.py:76-82):
 The gradient-norm early exit (cubic.py:201-202) zeroes the step so the
 run loop's iterate-diff tolerance fires, as in the reference. The JAX
 package's ``lax.cond`` and ``while_loop`` become Python control flow with
-one host read per decision.
+one host read per decision. The ``"CG"`` backend also runs on row-sharded
+data (``parallel.sharded.ShardedDual``), one all-reduce per HVP; ``"full"``
+needs the dense copy of A, which sharded data does not keep.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ from typing import NamedTuple
 import torch
 
 from krylov_crn_tpu_torch.config import accum_dtype
-from krylov_crn_tpu_torch.data.formats import DualSparse
 from krylov_crn_tpu_torch.models.logistic import (
+    data_mask,
     hessian_weights,
     logreg_gradient_from_margins,
     logreg_hessian_dense,
     logreg_value_from_margins,
+    value_args,
 )
 from krylov_crn_tpu_torch.ops.math import ls_accept, pair_diff, reg_clamp
 from krylov_crn_tpu_torch.ops.spmv import rmatvec, spmv
@@ -67,7 +70,7 @@ def _line_search(data, b, state, trial, l2, beta, ls_max, adt, g_norm,
     def value_at(x_new):
         Ax_new = spmv(data, x_new)
         vhi, vlo = logreg_value_from_margins(b, Ax_new, x_new, l2=l2,
-                                             n=data.n)
+                                             **value_args(data))
         return Ax_new, vhi, vlo
 
     Ax_new, vhi, vlo = value_at(x_new)
@@ -102,7 +105,7 @@ def _early(state, g_norm):
 
 
 def crn_step_full(
-    data: DualSparse,
+    data,
     b: torch.Tensor,
     state: CRNState,
     l2: float = 0.0,
@@ -132,7 +135,7 @@ def crn_step_full(
 
 
 def crn_step_cg(
-    data: DualSparse,
+    data,
     b: torch.Tensor,
     state: CRNState,
     l2: float = 0.0,
@@ -152,7 +155,7 @@ def crn_step_cg(
     g_norm = torch.sqrt(torch.dot(g.to(adt), g.to(adt)))
     if bool(g_norm < tolerance):
         return _early(state, g_norm)
-    w = hessian_weights(state.Ax)
+    w = hessian_weights(state.Ax, data_mask(data))
 
     def hvp(v):
         Hv = rmatvec(data, w * spmv(data, v)) / n

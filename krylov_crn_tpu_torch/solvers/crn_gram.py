@@ -17,6 +17,10 @@ fp32 runs pin the committed state to exact fp64 host values after every
 iteration and roll back any iteration that raises the exact value
 (trust-but-verify); ``metrics["exact_its"]`` / ``["exact_fs"]`` hold the
 exact values.
+
+``GramCRN(mesh=)`` runs on a row-banded K like ``GramKrylov``: every CG
+matvec is a band product and one all-gather, and the host-sequenced loops
+read replicated values, so all ranks take the same branches.
 """
 
 from __future__ import annotations
@@ -110,7 +114,7 @@ def _grad_probe(gd: GramData, state: GramKrylovState, l2, adt):
     residual = (sig - gd.b) * gd.mask
     w_new = residual / n + (l2 * state.zeta if l2 else 0.0)
     dw = w_new - state.w_g
-    uK = state.uK + k_matvec(gd.K, dw)
+    uK = state.uK + k_matvec(gd.K, dw, gd.mesh)
     beta_g = l2 * state.gamma
     u_g = beta_g * gd.Ax0 + uK
     g = Rep(beta_g, w_new, u_g)
@@ -124,8 +128,9 @@ def _hop(gd: GramData, D, l2):
     def hop(v: Rep) -> Rep:
         q = D * v.u
         if not l2:
-            return Rep(0.0 * v.beta, q, k_matvec(gd.K, q))
-        return Rep(l2 * v.beta, q + l2 * v.w, k_matvec(gd.K, q) + l2 * v.u)
+            return Rep(0.0 * v.beta, q, k_matvec(gd.K, q, gd.mesh))
+        return Rep(l2 * v.beta, q + l2 * v.w,
+                   k_matvec(gd.K, q, gd.mesh) + l2 * v.u)
 
     return hop
 

@@ -17,6 +17,12 @@ the same cap and accept test (one host read per trial); the accepted
 trial's margins become the next step's cache. On a card the products go
 through the dense matvec kernel when the data keeps dense copies
 (``ops/spmv.py``).
+
+On row-sharded data (``parallel.sharded.ShardedDual``) x, the Lanczos
+basis and every subspace quantity are replicated, while the margins ``Ax``
+and the rows of ``AV`` are this rank's block: each HVP and the gradient
+take one all-reduce of a d-vector, each trial's value one small
+all-gather, and the line search reads the same booleans on every rank.
 """
 
 from __future__ import annotations
@@ -26,11 +32,12 @@ from typing import NamedTuple
 import torch
 
 from krylov_crn_tpu_torch.config import accum_dtype
-from krylov_crn_tpu_torch.data.formats import DualSparse
 from krylov_crn_tpu_torch.models.logistic import (
+    data_mask,
     hessian_weights,
     logreg_gradient_from_margins,
     logreg_value_from_margins,
+    value_args,
 )
 from krylov_crn_tpu_torch.ops.lanczos import lanczos
 from krylov_crn_tpu_torch.ops.math import ls_accept, pair_diff, reg_clamp
@@ -56,7 +63,7 @@ class KrylovState(NamedTuple):
 
 
 def krylov_step(
-    data: DualSparse,
+    data,
     b: torch.Tensor,
     state: KrylovState,
     m: int = 10,
@@ -76,7 +83,8 @@ def krylov_step(
 
     x, Ax, value = state.x, state.Ax, state.value
     g = logreg_gradient_from_margins(data, b, Ax, x, l2=l2)
-    w = hessian_weights(Ax)
+    w = hessian_weights(Ax, data_mask(data))
+    vkw = value_args(data)
 
     def hvp_op(v):
         Av = spmv(data, v)
@@ -107,7 +115,7 @@ def krylov_step(
         s_c = s.to(cdt)
         x_new = x + s_c @ lz.V
         Ax_new = Ax + s_c @ AV
-        vhi, vlo = logreg_value_from_margins(b, Ax_new, x_new, l2=l2, n=n)
+        vhi, vlo = logreg_value_from_margins(b, Ax_new, x_new, l2=l2, **vkw)
         return lam, it, model_dec, x_new, Ax_new, vhi, vlo
 
     # backtracking (cubic.py:286-303): optimistic first trial at reg*beta,
@@ -139,10 +147,10 @@ def krylov_step(
     )
 
 
-def _initial_value(data: DualSparse, b, x0, l2):
+def _initial_value(data, b, x0, l2):
     """(value_hi, value_lo, margins) at the start point."""
     Ax = spmv(data, x0)
-    hi, lo = logreg_value_from_margins(b, Ax, x0, l2=l2, n=data.n)
+    hi, lo = logreg_value_from_margins(b, Ax, x0, l2=l2, **value_args(data))
     return hi, lo, Ax
 
 

@@ -12,9 +12,18 @@ margins, gradient image and value re-evaluated exactly in fp64 on the
 host at every chunk boundary (``run_fused``); a chunk that does not
 improve the exact value is rolled back (trust-but-verify).
 
+Under a mesh (``GramKrylov(mesh=)``) K is row-banded over the ranks and
+every state vector is replicated: each rank runs the same step on the
+same bytes, and the only collectives of a step are the m + 1 all-gathers
+of its K-matvecs (``ops/gram.k_matvec``). The JAX package's ``repl``
+sharding pins and ``_dev_like`` are GSPMD plumbing with no counterpart:
+replicated tensors simply live on each rank. Every rank keeps the host
+scipy matrix and does the exact fp64 reinjection and certification
+itself, on identical inputs.
+
 Left out against the JAX package: the bf16 Lanczos head (default off
-there), mesh sharding, margin re-derivation (``run_fused`` passes
-``rederive=False``) and the relay-link warm-ups.
+there), margin re-derivation (``run_fused`` passes ``rederive=False``;
+it is the JAX step's (m+2)-th K-matvec) and the relay-link warm-ups.
 """
 
 from __future__ import annotations
@@ -200,7 +209,7 @@ def gram_krylov_step(
     w_new = residual / n + (l2 * zeta if l2 else 0.0)
     # incremental gradient image: the fresh matvec runs on the step-sized dw
     dw = w_new - state.w_g
-    uK = state.uK + k_matvec(gd.K, dw)
+    uK = state.uK + k_matvec(gd.K, dw, gd.mesh)
     beta_g = l2 * gamma
     u_g = beta_g * gd.Ax0 + uK
     g = Rep(beta_g, w_new, u_g)
@@ -210,7 +219,7 @@ def gram_krylov_step(
     def hop(v: Rep) -> Rep:
         q = D * v.u
         w_H = q + (l2 * v.w if l2 else 0.0)
-        u_H = k_matvec(gd.K, q) + (l2 * v.u if l2 else 0.0)
+        u_H = k_matvec(gd.K, q, gd.mesh) + (l2 * v.u if l2 else 0.0)
         return Rep(l2 * v.beta, w_H, u_H)
 
     lz = gram_lanczos(gd, hop, g, m, reorth_passes=reorth_passes,
@@ -421,13 +430,18 @@ class GramKrylov(Optimizer):
 
     Requires the oracle's host scipy matrix (LogisticRegression keeps it)
     for the one-time K build and the exact host corrections. A pre-built
-    ``gram_data`` (same A, same x0) skips the K build."""
+    ``gram_data`` (same A, same x0) skips the K build. ``mesh`` (several
+    ranks, every rank constructing the same solver): K row-banded over the
+    ranks on the mesh's device."""
 
     def __init__(self, reg_coef=None, subspace_dim=100, solver_eps=1e-8,
                  beta=0.5, solver_it_max=100, ls_max=20, reorth_passes=1,
-                 gram_data=None, device=None, *args, **kwargs):
+                 gram_data=None, device=None, mesh=None, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._gd_preset = gram_data
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         self.device = (gram_data.K.device if gram_data is not None
                        and device is None else resolve_device(device))
         self.subspace_dim = int(subspace_dim)
@@ -490,7 +504,7 @@ class GramKrylov(Optimizer):
             self.gd = gd
         else:
             self.gd = build_gram(A, loss.b[:n_real], x0h, dtype=dtype,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
         return _init_state_packed(self.gd.Ax0,
                                   torch.from_numpy(buf).to(self.device), npad)
 
@@ -611,7 +625,7 @@ class GramKrylov(Optimizer):
                         "boundary_fs", "rollback_its", "rollback_fs"):
                 metrics.setdefault(key, [])
         cert_stacks = []  # (first_it, k, reps-on-device) of accepted chunks
-        t_start = time.perf_counter()
+        self.t_start = time.perf_counter()
         t_prev = 0.0
         n_real = self.gd.n
         chunk_cur = chunk
@@ -634,7 +648,7 @@ class GramKrylov(Optimizer):
                 fetch += [self.state.gamma, self.state.reg_coef,
                           self.state.r0, self.state.zeta]
             got = _fetch(fetch)
-            now = time.perf_counter() - t_start
+            now = self.elapsed()
             vals = got[0] + got[1]
             gns, dns, sits = got[2], got[3], got[4].astype(np.int64)
             if exact:

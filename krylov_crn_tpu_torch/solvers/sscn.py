@@ -18,7 +18,10 @@ from a key carried in the state; threefry cannot be reproduced here.
 an explicit CPU ``torch.Generator`` seeded by the run's seed
 (``randperm(d)[:m]``), then moves it to the device: a card run and a CPU
 run see the same coordinates. The generator's state belongs to a
-checkpoint (utils/checkpoint.py), not to the state.
+checkpoint (utils/checkpoint.py), not to the state. On row-sharded data
+every rank seeds its own generator alike and so draws the same I; the
+panel and the margins are this rank's rows, and g_I and H_I take one
+all-reduce each (``models/logistic.logreg_partials``).
 
 The JAX ``while_loop`` line search becomes a Python loop with the same cap
 and accept test (one host read per trial, and one per secular Newton
@@ -33,10 +36,10 @@ import numpy as np
 import torch
 
 from krylov_crn_tpu_torch.config import accum_dtype
-from krylov_crn_tpu_torch.data.formats import DualSparse
 from krylov_crn_tpu_torch.models.logistic import (
     logreg_partials,
     logreg_value_from_margins,
+    value_args,
 )
 from krylov_crn_tpu_torch.ops.math import ls_accept, pair_diff, reg_clamp
 from krylov_crn_tpu_torch.ops.subproblem import secular_newton, sym_eigh
@@ -62,7 +65,7 @@ class SSCNState(NamedTuple):
 
 
 def sscn_step(
-    data: DualSparse,
+    data,
     b: torch.Tensor,
     state: SSCNState,
     I: torch.Tensor,
@@ -100,7 +103,7 @@ def sscn_step(
         x_new = x.index_put((I,), x[I] + s_c)
         Ax_new = Ax + B @ s_c
         vhi, vlo = logreg_value_from_margins(b, Ax_new, x_new, l2=l2,
-                                             n=data.n)
+                                             **value_args(data))
         return lam, it, model_dec, x_new, Ax_new, vhi, vlo
 
     # backtracking from max(reg*beta, fp64 eps) (the floor mirrors

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from krylov_crn_tpu_torch import cli
+from krylov_crn_tpu_torch.parallel.mesh import single
 
 
 def _write_libsvm(path, A, b):
@@ -89,8 +90,13 @@ def test_cli_gram_path(tmp_path):
 
 
 def test_cli_refusals(monkeypatch):
-    with pytest.raises(SystemExit, match="A.14"):
-        cli.main(["--device", "cpu", "--mesh", "2"])
+    # --mesh N runs in N ranks, which cli.main starts or joins: the grid
+    # itself refuses to run without them, or in another number of them
+    args = cli.build_parser().parse_args(["--device", "cpu", "--mesh", "2"])
+    with pytest.raises(SystemExit, match="needs a mesh of 2 ranks"):
+        cli.run_grid(args)
+    with pytest.raises(SystemExit, match="needs a mesh of 2 ranks"):
+        cli.run_grid(args, mesh=single("cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["--dataset", "w8a", "--synthetic"])

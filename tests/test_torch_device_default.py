@@ -15,7 +15,10 @@ from krylov_crn_tpu_torch.data.formats import (
     from_scipy,
     padded_dense,
 )
+from krylov_crn_tpu_torch.graft_entry import entry
 from krylov_crn_tpu_torch.ops.gram import build_gram
+from krylov_crn_tpu_torch.parallel.launch import run_ranks
+from krylov_crn_tpu_torch.parallel.mesh import make_mesh, single
 from krylov_crn_tpu_torch.solvers.crn import CRNState
 
 
@@ -44,6 +47,16 @@ def _crn_leaves():
     return types.SimpleNamespace(**{f: np.zeros(3) for f in CRNState._fields})
 
 
+def _rank_device(mesh):
+    return str(mesh.device)
+
+
+def _launch_one_rank(device=None):
+    """One rank through the launcher; where it ran."""
+    (dev,) = run_ranks(_rank_device, 1, None, device, 60.0)
+    return types.SimpleNamespace(device=torch.device(dev))
+
+
 ENTRY_POINTS = {
     "LogisticRegression": lambda p, **kw: LogisticRegression(p[0], p[1], **kw),
     "build_gram": lambda p, **kw: build_gram(*p, **kw),
@@ -57,6 +70,11 @@ ENTRY_POINTS = {
         _gram_leaves(), **kw),
     "crn_state_from_numpy": lambda p, **kw: convert.crn_state_from_numpy(
         _crn_leaves(), **kw),
+    "make_mesh": lambda p, **kw: make_mesh(**kw),
+    "single_mesh": lambda p, **kw: single(**kw),
+    "run_ranks": lambda p, **kw: _launch_one_rank(**kw),
+    # the labels of the entry point's example arguments
+    "graft_entry": lambda p, **kw: entry(**kw)[1][1],
 }
 
 
