@@ -47,6 +47,8 @@ from krylov_crn_tpu_torch.ops.coords import gather_columns_dense
 from krylov_crn_tpu_torch.ops.math import (
     accum_dot,
     accum_sum_pair,
+    div_n,
+    over_n,
     logsig,
     sigmoid,
     two_sum,
@@ -118,10 +120,10 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
         terms = terms * mask
     if n is None:
         n = Ax.shape[0]
-    # a 0-d divisor on the terms' device: CUDA divides a tensor by a Python
-    # number as a product with the rounded reciprocal, which would scale
-    # every term alike (up to 6e-8 relative; it does not average out)
-    terms = terms.to(adt) / torch.full((), n, dtype=adt, device=terms.device)
+    # divided truly, unlike the JAX package's product (over_n): a value
+    # reading is held against f*, and the product would scale every term
+    # by fl(1/n) * n
+    terms = div_n(terms.to(adt), n)
     hi, lo = accum_sum_pair(terms, adt)
     if mesh is not None and mesh.distributed:
         hi, lo = _fold_pairs(mesh, hi, lo)
@@ -144,7 +146,7 @@ def logreg_gradient_from_margins(data, b, Ax, x, l2: float = 0.0):
     mask = data_mask(data)
     if mask is not None:
         residual = residual * mask
-    g = rmatvec(data, residual) / data.n
+    g = over_n(rmatvec(data, residual), data.n)
     if l2:
         g = g + l2 * x
     return g
@@ -176,7 +178,7 @@ def logreg_hessian_dense(data: DualSparse, Ax, l2: float = 0.0):
         raise ValueError("dense Hessian requires DualSparse built with "
                          "want_dense=True (small-d problems)")
     w = hessian_weights(Ax)
-    H = (data.dense * w[:, None]).T @ data.dense / data.n
+    H = over_n((data.dense * w[:, None]).T @ data.dense, data.n)
     if l2:
         H = H + l2 * torch.eye(data.d, dtype=H.dtype, device=H.device)
     return H
@@ -200,14 +202,14 @@ def logreg_partials(data, b, Ax, x, I, l2: float = 0.0,
         B = sharded_gather_columns(data, I)
         residual = (sigmoid(Ax) - b) * data.mask
         w = hessian_weights(Ax, data.mask)
-        g = all_reduce_sum(data.mesh, B.T @ residual) / data.n
-        H = all_reduce_sum(data.mesh, (B * w[:, None]).T @ B) / data.n
+        g = over_n(all_reduce_sum(data.mesh, B.T @ residual), data.n)
+        H = over_n(all_reduce_sum(data.mesh, (B * w[:, None]).T @ B), data.n)
     else:
         B = gather_columns_dense(data, I, k_pad)
         residual = sigmoid(Ax) - b
         w = hessian_weights(Ax)
-        g = B.T @ residual / data.n
-        H = (B * w[:, None]).T @ B / data.n
+        g = over_n(B.T @ residual, data.n)
+        H = over_n((B * w[:, None]).T @ B, data.n)
     if l2:
         g = g + l2 * x[I]
         H = H + l2 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)

@@ -27,17 +27,21 @@ import time
 from pathlib import Path
 
 __all__ = ["load_library", "load_host_library", "nvcc_path",
-           "last_build_seconds"]
+           "last_build_seconds", "last_build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# -Xptxas=-v: ptxas reports each kernel's registers, shared memory and
+# spills (kept in last_build_log)
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 last_build_seconds: dict[str, float] = {}
+last_build_log: dict[str, str] = {}  # the compiler's output of each build
 
 
 def nvcc_path() -> str:
@@ -75,6 +79,7 @@ def _build(name: str, src: Path, compiler: str, flags: list[str]) -> Path:
                 f"{Path(compiler).name} failed ({res.returncode}) building "
                 f"{src.name}:\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, out)
+        last_build_log[name] = res.stdout + res.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -19,11 +19,12 @@ Every reduction works on the last axis and broadcasts over leading
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "logsig", "sigmoid",
+    "logsig", "sigmoid", "div_n", "over_n",
     "two_sum", "sum2", "dot2",
     "accum_sum", "accum_dot", "accum_sum_pair",
     "pair_diff", "ls_accept", "reg_clamp",
@@ -43,6 +44,30 @@ def softplus(x):
     """log(1 + exp(x)) exactly (``F.softplus`` returns x above its
     threshold of 20, which breaks fp64 parity with ``jax.nn.softplus``)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def div_n(t, n):
+    """t / n, divided truly on every device (the d-space value, whose
+    reading is held against f*). PyTorch's CUDA division takes a Python
+    number (or a 0-d CPU tensor) as a scalar and multiplies by its rounded
+    reciprocal, which scales every result by fl(1/n) * n (2e-8 relative
+    at n = 49,749). The divisor is a 0-d tensor of t's dtype on t's
+    device."""
+    return t / torch.full((), n, dtype=t.dtype, device=t.device)
+
+
+def over_n(t, n):
+    """t / n in the JAX package's fp32 arithmetic, the same bits on every
+    device: an fp32 t times fl32(1/n). The JAX package divides by n inside
+    jit, where n is static (``GramData.n``, the sparse matrices' shapes),
+    and XLA folds a division by a compile-time constant into that product
+    on every backend; eager PyTorch divides truly on the CPU and takes the
+    product on a card (for a Python divisor), so ``t / n`` gave two
+    results. Other dtypes divide truly (``div_n``), as the host's exact
+    fp64 values that the fp64 runs are held against do."""
+    if t.dtype != torch.float32:
+        return div_n(t, n)
+    return t * float(np.reciprocal(np.float32(n)))
 
 
 # --------------------- error-free transformations ---------------------

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from krylov_crn_tpu_torch.data.formats import DualSparse
+from krylov_crn_tpu_torch.ops.math import over_n
 from krylov_crn_tpu_torch.ops.matvec import matvec
 
 __all__ = ["spmv_csr", "dense_matvec", "spmv", "rmatvec", "hvp_sparse",
@@ -83,7 +84,7 @@ def hvp_sparse(data, w: torch.Tensor, v: torch.Tensor,
     """Generalized-linear-model HVP  A^T (w * (A v)) / n + l2 * v, never
     materializing the Hessian (reference loss.py:289-302)."""
     n = data.n if n_scale is None else n_scale
-    out = rmatvec(data, w * spmv(data, v)) / n
+    out = over_n(rmatvec(data, w * spmv(data, v)), n)
     if l2:
         out = out + l2 * v
     return out

@@ -30,11 +30,18 @@ to device. It is counted like any other.
 Each collective is counted on the mesh (``Mesh.counts``: calls, payload
 bytes and the largest payload in elements, per kind), the port's stand-in
 for reading the collectives out of compiled HLO.
+
+**A divergence fails loudly.** ``check_replicated`` hashes host values
+that every rank must hold alike and all-gathers the hashes (counted apart
+from the solvers' own collectives, as ``"digest"``); ranks whose bits
+differ all raise the same error, naming the fields and ranks, before
+they could branch apart and hang in mismatched collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -44,9 +51,11 @@ from krylov_crn_tpu_torch.config import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "single", "all_reduce_sum", "all_reduce_max",
            "all_gather_rows", "all_gather_host", "broadcast_scalar",
-           "KINDS"]
+           "check_replicated", "KINDS"]
 
-KINDS = ("all_reduce", "all_gather", "broadcast")
+# "digest": check_replicated's hash exchange, kept apart from the
+# all-gathers that a solver step's budget counts
+KINDS = ("all_reduce", "all_gather", "broadcast", "digest")
 
 
 def _zero_counts():
@@ -147,13 +156,15 @@ def all_reduce_max(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return _all_reduce(mesh, t, dist.ReduceOp.MAX)
 
 
-def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(mesh: Mesh, t: torch.Tensor,
+                    kind: str = "all_gather") -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along the first axis
-    in rank order; a 0-d ``t`` gives a (world,) vector."""
+    in rank order; a 0-d ``t`` gives a (world,) vector. Counted under
+    ``kind``."""
     t = t.reshape(1) if t.dim() == 0 else t
     if not mesh.distributed:
         return t
-    mesh._count("all_gather", t.numel() * mesh.world, t.element_size())
+    mesh._count(kind, t.numel() * mesh.world, t.element_size())
     src = (t.detach().cpu() if _staged(mesh, t) else t.detach()).contiguous()
     out = torch.empty((mesh.world * src.shape[0], *src.shape[1:]),
                       dtype=src.dtype, device=src.device)
@@ -162,7 +173,8 @@ def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return out.to(t.device)
 
 
-def all_gather_host(mesh: Mesh, x: np.ndarray) -> np.ndarray:
+def all_gather_host(mesh: Mesh, x: np.ndarray,
+                    kind: str = "all_gather") -> np.ndarray:
     """A small host array from every rank, stacked (world, ...); the
     identity (one leading axis added) on a mesh of one rank."""
     x = np.ascontiguousarray(x)
@@ -171,7 +183,7 @@ def all_gather_host(mesh: Mesh, x: np.ndarray) -> np.ndarray:
     t = torch.from_numpy(x.reshape(1, -1))
     if mesh.backend == "nccl":
         t = t.to(mesh.device)
-    out = all_gather_rows(mesh, t)
+    out = all_gather_rows(mesh, t, kind)
     return out.cpu().numpy().reshape((mesh.world, *x.shape))
 
 
@@ -185,3 +197,35 @@ def broadcast_scalar(mesh: Mesh, value: float) -> float:
                      device=mesh.device if mesh.backend == "nccl" else "cpu")
     dist.broadcast(t, src=0, group=mesh.group)
     return float(t[0])
+
+
+def _digest(value) -> int:
+    """64 bits of a hash of a value's bytes, dtype and shape."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(value))
+    h = hashlib.blake2b(a.tobytes(), digest_size=8)
+    h.update(f"{a.dtype}{a.shape}".encode())
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def check_replicated(mesh: Mesh | None, where: str, **fields) -> None:
+    """Raise the same ``RuntimeError`` on every rank unless all ranks hold
+    the same bits in each of ``fields`` (host values or tensors). One
+    all-gather of 8 bytes per field, counted as ``"digest"``; nothing on a
+    mesh of one rank."""
+    if mesh is None or not mesh.distributed:
+        return
+    names = list(fields)
+    mine = np.array([_digest(fields[k]) for k in names], np.int64)
+    table = all_gather_host(mesh, mine, kind="digest")
+    apart = {k: [r for r in range(mesh.world) if table[r, i] != table[0, i]]
+             for i, k in enumerate(names)}
+    apart = {k: v for k, v in apart.items() if v}
+    if apart:
+        raise RuntimeError(
+            f"replicated state differs across the {mesh.world} ranks "
+            f"{where}: " + "; ".join(f"{k} on ranks {v} differs from rank 0"
+                                     for k, v in apart.items())
+            + " (the ranks would branch apart and wait in mismatched "
+            "collectives)")

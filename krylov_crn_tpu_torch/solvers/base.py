@@ -16,7 +16,9 @@ Under a mesh of several ranks (``self.mesh``, taken from a sharded oracle
 or given to the Gram solvers) every rank runs this loop and must take the
 same branches. Iteration counts and tolerances read replicated values;
 the clock does not, so a run with a finite ``t_max`` uses rank 0's
-elapsed time on every rank (``elapsed``).
+elapsed time on every rank (``elapsed``). After every step the ranks
+compare a hash of the replicated state (``check_replicated``): state whose
+bits drifted apart raises on every rank instead of hanging.
 """
 
 from __future__ import annotations
@@ -26,13 +28,20 @@ from typing import Any
 
 import numpy as np
 
-from krylov_crn_tpu_torch.parallel.mesh import broadcast_scalar
+from krylov_crn_tpu_torch.parallel.mesh import (
+    broadcast_scalar,
+    check_replicated,
+)
 from krylov_crn_tpu_torch.utils.trace import Trace
 
 __all__ = ["Optimizer"]
 
 
 class Optimizer:
+    # state fields that hold this rank's rows only under a mesh (the
+    # d-space margins); every other field is replicated
+    local_fields = ("Ax",)
+
     def __init__(self, loss, trace_len=200, tolerance=0,
                  save_first_iterations=5, label=None, seeds=None,
                  store_iterates=True):
@@ -78,18 +87,25 @@ class Optimizer:
                 self.initialized = True
             while not self.check_convergence():
                 self.step()
+                self.check_replicated(f"after iteration {self.it + 1}")
                 self.save_checkpoint()
             self.finished_seeds.append(seed)
             self.initialized = False
-            # fold the device-tracked running-best value into the oracle's
-            # empirical-f* record (two-float states: full pair precision)
-            if hasattr(self.state, "f_best"):
-                f_best = (float(self.state.f_best)
-                          + float(getattr(self.state, "f_best_lo", 0.0)))
-                if f_best < self.loss.f_opt:
-                    self.loss.f_opt = f_best
-                    self.loss.x_opt = self.current_x()
+            # fold the run's best value into the oracle's empirical-f*
+            # record
+            f_best = self.best_value()
+            if f_best is not None and f_best < self.loss.f_opt:
+                self.loss.f_opt = f_best
+                self.loss.x_opt = self.current_x()
         return self.trace
+
+    def best_value(self):
+        """The run's best value for the empirical f*: the device-tracked
+        running best (two-float states: full pair precision), or None."""
+        if not hasattr(self.state, "f_best"):
+            return None
+        return (float(self.state.f_best)
+                + float(getattr(self.state, "f_best_lo", 0.0)))
 
     def warm(self, x0, seed=42):
         """One throwaway step from a fresh start, so the step's one-time
@@ -105,6 +121,16 @@ class Optimizer:
         float(getattr(st, "value", getattr(st, "grad_norm", 0.0)))
         self.trace.metrics = saved_metrics
         self.initialized = False
+
+    def check_replicated(self, where: str) -> None:
+        """Under a mesh of several ranks: every rank holds the same bits in
+        each replicated state field, or every rank raises."""
+        if self.mesh is None or not self.mesh.distributed:
+            return
+        st = self.state
+        check_replicated(self.mesh, where, **{
+            k: getattr(st, k) for k in st._fields
+            if k not in self.local_fields})
 
     def current_x(self):
         """The current iterate as an explicit vector (or None); the Gram

@@ -31,7 +31,12 @@ from krylov_crn_tpu_torch.models.logistic import (
     logreg_value_from_margins,
     value_args,
 )
-from krylov_crn_tpu_torch.ops.math import ls_accept, pair_diff, reg_clamp
+from krylov_crn_tpu_torch.ops.math import (
+    over_n,
+    ls_accept,
+    pair_diff,
+    reg_clamp,
+)
 from krylov_crn_tpu_torch.ops.spmv import rmatvec, spmv
 from krylov_crn_tpu_torch.ops.subproblem import (
     cubic_solve_cg,
@@ -158,7 +163,7 @@ def crn_step_cg(
     w = hessian_weights(state.Ax, data_mask(data))
 
     def hvp(v):
-        Hv = rmatvec(data, w * spmv(data, v)) / n
+        Hv = over_n(rmatvec(data, w * spmv(data, v)), n)
         if l2:
             Hv = Hv + l2 * v
         return Hv

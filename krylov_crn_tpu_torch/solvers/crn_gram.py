@@ -36,7 +36,7 @@ from krylov_crn_tpu_torch.ops.gram import (
     rep_axpy,
     rep_dot,
 )
-from krylov_crn_tpu_torch.ops.math import reg_clamp, sigmoid, two_sum
+from krylov_crn_tpu_torch.ops.math import over_n, reg_clamp, sigmoid, two_sum
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_gram import (
     GramKrylov,
@@ -47,7 +47,8 @@ from krylov_crn_tpu_torch.solvers.krylov_gram import (
     _x_sqnorm,
 )
 
-__all__ = ["GramCRN", "gram_crn_step", "cg_rep", "host_read"]
+__all__ = ["GramCRN", "gram_crn_step", "cg_rep", "host_read",
+           "watch_rollbacks"]
 
 
 def host_read(*tensors):
@@ -112,14 +113,14 @@ def _grad_probe(gd: GramData, state: GramKrylovState, l2, adt):
     sig0 = sigmoid(state.Ax)
     sig = sig0 + sig0 * (1.0 - sig0) * state.Ax_lo
     residual = (sig - gd.b) * gd.mask
-    w_new = residual / n + (l2 * state.zeta if l2 else 0.0)
+    w_new = over_n(residual, n) + (l2 * state.zeta if l2 else 0.0)
     dw = w_new - state.w_g
     uK = state.uK + k_matvec(gd.K, dw, gd.mesh)
     beta_g = l2 * state.gamma
     u_g = beta_g * gd.Ax0 + uK
     g = Rep(beta_g, w_new, u_g)
     g_norm = torch.sqrt(torch.clamp(rep_dot(gd, g, g, adt), min=0.0))
-    D = sig0 * (1.0 - sig0) * gd.mask / n
+    D = over_n(sig0 * (1.0 - sig0) * gd.mask, n)
     return g, g_norm, D, w_new, uK
 
 
@@ -374,3 +375,47 @@ class GramCRN(GramKrylov):
                 and float(self.state.grad_norm) < self.tolerance):
             return True
         return Optimizer.check_convergence(self)
+
+
+def _host(t):
+    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def watch_rollbacks(alg):
+    """A check of ``alg``'s trust-but-verify rollback, for tests and the
+    card's smoke run; ``alg`` is this module's GramCRN or the JAX
+    package's (both restore through ``_exact_reinject``). Before each
+    rollback it records the verified snapshot (gamma, zeta) and the reg
+    the rule restores (the rejected iteration's reg one notch up, capped);
+    after each step that rolled back, whether the state holds exactly
+    those bits, and the state itself. Returns the list of records."""
+    checks = []
+    reinject, step = alg._exact_reinject, alg.step
+
+    def watched_reinject(gamma, zeta64, reg=None, **kw):
+        if reg is not None:
+            prev = alg._crn_verified
+            checks.append(dict(gamma=prev["gamma"], zeta=prev["zeta"].copy(),
+                               reg=min(float(alg.state.reg_coef) / alg.beta,
+                                       max(1e6, 1e4 * float(alg.reg_coef))),
+                               reg_given=reg))
+        return reinject(gamma, zeta64, reg=reg, **kw)
+
+    def watched_step():
+        before = len(checks)
+        step()
+        if len(checks) > before:
+            c, st = checks[-1], alg.state
+            n = c["zeta"].shape[0]
+            z = _host(st.zeta)
+            c["state"] = dict(gamma=float(st.gamma), zeta=z[:n].copy(),
+                              reg=float(st.reg_coef))
+            c["restored"] = bool(
+                float(st.gamma) == np.float32(c["gamma"])
+                and np.array_equal(z[:n], c["zeta"].astype(np.float32))
+                and not z[n:].any()
+                and float(st.reg_coef) == np.float32(c["reg"])
+                and c["reg_given"] == c["reg"])
+
+    alg._exact_reinject, alg.step = watched_reinject, watched_step
+    return checks

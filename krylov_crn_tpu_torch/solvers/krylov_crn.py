@@ -40,7 +40,12 @@ from krylov_crn_tpu_torch.models.logistic import (
     value_args,
 )
 from krylov_crn_tpu_torch.ops.lanczos import lanczos
-from krylov_crn_tpu_torch.ops.math import ls_accept, pair_diff, reg_clamp
+from krylov_crn_tpu_torch.ops.math import (
+    over_n,
+    ls_accept,
+    pair_diff,
+    reg_clamp,
+)
 from krylov_crn_tpu_torch.ops.spmv import rmatvec, spmv
 from krylov_crn_tpu_torch.ops.subproblem import secular_newton, tridiag_eigh
 from krylov_crn_tpu_torch.solvers.base import Optimizer
@@ -88,7 +93,7 @@ def krylov_step(
 
     def hvp_op(v):
         Av = spmv(data, v)
-        Hv = rmatvec(data, w * Av) / n
+        Hv = over_n(rmatvec(data, w * Av), n)
         if l2:
             Hv = Hv + l2 * v
         return Hv, Av

@@ -47,6 +47,7 @@ from krylov_crn_tpu_torch.ops.gram import (
 )
 from krylov_crn_tpu_torch.ops.math import (
     accum_sum_pair,
+    over_n,
     dot2,
     logsig,
     pair_diff,
@@ -56,6 +57,7 @@ from krylov_crn_tpu_torch.ops.math import (
     two_sum,
 )
 from krylov_crn_tpu_torch.ops.subproblem import secular_newton, tridiag_eigh
+from krylov_crn_tpu_torch.parallel.mesh import check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 
 __all__ = ["GramKrylov", "GramKrylovState", "gram_krylov_step",
@@ -106,7 +108,7 @@ def _gram_value(gd: GramData, Ax, x_sqnorm, l2, adt, Ax_lo=None):
     against the margin pair and the bounded nonlinear part -logsig(m)
     takes a first-order lo correction (krylov_crn_tpu's docstring has the
     error analysis)."""
-    scale = gd.mask / gd.n
+    scale = over_n(gd.mask, gd.n)
     if Ax_lo is not None:
         p = ((1.0 - gd.b) * scale).to(adt)
         hi, lo = dot2(p, Ax.to(adt))
@@ -149,9 +151,9 @@ def _candidate_df(gd: GramData, Ax, inc, adt):
     and as the direct softplus difference beyond (where the log1p form
     overflows in fp32). Returns the change as an (hi, lo) pair."""
     n = gd.n
-    p = ((1.0 - gd.b) * gd.mask / n).to(adt)
+    p = over_n((1.0 - gd.b) * gd.mask, n).to(adt)
     sig_neg = sigmoid(-Ax)
-    scale = gd.mask / n
+    scale = over_n(gd.mask, n)
     lin_hi, lin_lo = dot2(p, inc.to(adt))
     inc_s = torch.clamp(inc, -15.0, 15.0)
     nl_log1p = torch.log1p(sig_neg * torch.expm1(-inc_s))
@@ -206,7 +208,7 @@ def gram_krylov_step(
     sig0 = sigmoid(Ax)
     sig = sig0 + sig0 * (1.0 - sig0) * Ax_lo
     residual = (sig - gd.b) * gd.mask
-    w_new = residual / n + (l2 * zeta if l2 else 0.0)
+    w_new = over_n(residual, n) + (l2 * zeta if l2 else 0.0)
     # incremental gradient image: the fresh matvec runs on the step-sized dw
     dw = w_new - state.w_g
     uK = state.uK + k_matvec(gd.K, dw, gd.mesh)
@@ -214,7 +216,7 @@ def gram_krylov_step(
     u_g = beta_g * gd.Ax0 + uK
     g = Rep(beta_g, w_new, u_g)
 
-    D = sig * (1.0 - sig) * gd.mask / n
+    D = over_n(sig * (1.0 - sig) * gd.mask, n)
 
     def hop(v: Rep) -> Rep:
         q = D * v.u
@@ -434,6 +436,8 @@ class GramKrylov(Optimizer):
     ranks, every rank constructing the same solver): K row-banded over the
     ranks on the mesh's device."""
 
+    local_fields = ()  # under a mesh every Gram state field is replicated
+
     def __init__(self, reg_coef=None, subspace_dim=100, solver_eps=1e-8,
                  beta=0.5, solver_it_max=100, ls_max=20, reorth_passes=1,
                  gram_data=None, device=None, mesh=None, *args, **kwargs):
@@ -651,10 +655,20 @@ class GramKrylov(Optimizer):
             now = self.elapsed()
             vals = got[0] + got[1]
             gns, dns, sits = got[2], got[3], got[4].astype(np.int64)
+            # under a mesh, every rank must branch below on the same bits
+            # (the trust-but-verify decision, the stops): compare them
+            # first and fail on all ranks rather than hang
+            replicated = dict(values=vals, diff_norm=dns, chunk=k)
             if exact:
                 gamma_h = float(got[5])
                 zeta_h = got[8][:n_real]
                 value64 = self._exact_reinject(gamma_h, zeta_h)
+                replicated.update(gamma=gamma_h, zeta=zeta_h,
+                                  reg_coef=got[6], r0=got[7],
+                                  value64=value64)
+            check_replicated(self.mesh, "at the chunk boundary after "
+                             f"iteration {self.it + k}", **replicated)
+            if exact:
                 # trust-but-verify: a chunk must IMPROVE THE EXACT f to be
                 # kept; otherwise roll back to the verified snapshot and
                 # retry one iteration at a time, raising reg on repeated
@@ -758,6 +772,16 @@ class GramKrylov(Optimizer):
     def materialize(self, ck: GramCheckpoint):
         """x = gamma * x0 + A^T zeta (one transpose SpMV, on demand)."""
         return RepMaterializer(self._x0_host, self.loss)(ck)
+
+    def best_value(self):
+        """Where fp32 iterates were pinned to exact host values, the best
+        exact fp64 value counts too: the fp32 pair that holds it may read
+        a few fp64 ulps above it, and f* must lie at or below every
+        certified value."""
+        f = super().best_value()
+        if self._Ax0_64 is not None:
+            f = min(f, self._f_best_exact)
+        return f
 
     def current_x(self):
         """Materialized current iterate (for loss.x_opt tracking)."""

@@ -9,7 +9,11 @@ until every timed call is queued, and each event pair then brackets
 device work only. Where the output has the input's shape the calls are
 chained and data-dependent (each one's input is the previous output,
 normalized), so none can be skipped; the median per call is robust to a
-stray slow launch.
+stray slow launch. With ``flush_l2`` a 256 MB buffer is read between the
+timed calls (outside each event pair), so every call finds the card's
+50 MB L2 cache holding other, clean data, as a caller that streams other
+data between two products does (a write would leave dirty lines whose
+write-back the timed call would pay for).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ HBM_BYTES_PER_S = 3.35e12
 # ~25 ms at the H100's ~2 GHz clock: longer than the host takes to queue
 # a few dozen timed calls
 SPIN_CYCLES = 50_000_000
+# read between timed calls with flush_l2: five times the H100's L2
+L2_FLUSH_BYTES = 256 * 2**20
 
 
 def card_description() -> str:
@@ -44,13 +50,15 @@ def card_description() -> str:
 
 
 def device_time_per_call(fn: Callable, x, reps: int = 25,
-                         warmup: int = 3) -> float:
+                         warmup: int = 3, flush_l2: bool = False) -> float:
     """Median milliseconds per call of ``fn`` on the card, over ``reps``
     calls each timed with CUDA events; chained, x <- fn(x) / ||fn(x)||,
     when fn keeps the shape of x (a non-square matvec is called on the
-    same x each time)."""
+    same x each time). ``flush_l2``: each call finds the L2 cache cold."""
     import torch
 
+    scratch = (torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                           device=x.device) if flush_l2 else None)
     def feed(x, y):
         return y / torch.linalg.norm(y) if y.shape == x.shape else x
 
@@ -60,6 +68,8 @@ def device_time_per_call(fn: Callable, x, reps: int = 25,
     torch.cuda._sleep(SPIN_CYCLES)  # the card waits while the host queues
     pairs = []
     for _ in range(reps):
+        if scratch is not None:
+            scratch.sum()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -71,14 +81,16 @@ def device_time_per_call(fn: Callable, x, reps: int = 25,
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def alternating_ms(kernel: Callable, plain: Callable, x, reps: int = 25):
+def alternating_ms(kernel: Callable, plain: Callable, x, reps: int = 25,
+                   flush_l2: bool = False):
     """plain, kernel, kernel, plain on the same card: two lists, the
     kernel's and the plain version's median ms per call of each run
     (two versions compare only within one process on one card)."""
     t = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         fn = kernel if name == "kernel" else plain
-        t[name].append(device_time_per_call(fn, x, reps=reps))
+        t[name].append(device_time_per_call(fn, x, reps=reps,
+                                            flush_l2=flush_l2))
     return t["kernel"], t["plain"]
 
 

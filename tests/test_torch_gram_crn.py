@@ -161,3 +161,36 @@ def test_fp32_exact_values_never_rise(gram_problem):
     assert tr.metrics["exact_its"] == list(range(1, 6))
     assert np.all(np.isfinite(fs)) and fs[-1] < fs[0]
     assert all(f2 <= f1 for f1, f2 in zip(fs, fs[1:]))
+
+
+def test_fp32_rollback_restores_the_verified_state(gram_problem):
+    """fp32 with l2 = 1e-2: GramCRN reaches its fp32 floor within a few
+    iterations, an accepted step then raises the exact value, and
+    trust-but-verify rolls it back: the state is the verified snapshot's
+    gamma and zeta and the raised reg, bit for bit, and the exact values
+    never rise. The JAX package's fp32 GramCRN on the same problem rolls
+    back at the same iterations, restores the same reg, and its exact
+    values and restored states agree with the port's to fp32 rounding."""
+    A, b, x0 = gram_problem
+    alg = _port_solver(A, b, dtype=np.float32, l2=1e-2, tolerance=0)
+    checks = tcg.watch_rollbacks(alg)
+    tr = alg.run(x0, it_max=9)
+    rb = tr.metrics.get("rollback_its", [])
+    assert rb and len(checks) == len(rb)
+    assert all(c["restored"] for c in checks)
+    fs = tr.metrics["exact_fs"]
+    assert all(f2 <= f1 for f1, f2 in zip(fs, fs[1:]))
+    assert all(f > fs[-1] for f in tr.metrics["rollback_fs"])
+
+    ja = jcg.GramCRN(loss=JLoss(A, b, dtype=np.float32, l2=1e-2),
+                     reg_coef=1e-3, tolerance=0, tqdm=False)
+    jchecks = tcg.watch_rollbacks(ja)
+    tj = ja.run(x0, it_max=9)
+    assert tj.metrics["rollback_its"] == rb
+    assert all(c["restored"] for c in jchecks)
+    np.testing.assert_allclose(fs, tj.metrics["exact_fs"], rtol=1e-6)
+    for c, cj in zip(checks, jchecks):
+        st, sj = c["state"], cj["state"]
+        assert st["reg"] == sj["reg"]
+        assert abs(st["gamma"] - sj["gamma"]) < 1e-12
+        assert _rel_err(st["zeta"], sj["zeta"]) < 1e-6

@@ -1,9 +1,11 @@
 """The dense matvec kernel of the port (csrc/matvec.cu, ops/matvec.py).
 
-On the CPU the kernel cannot run: these tests emulate its two-pass split
-walk in PyTorch (with ``split_plan``, the rule the wrapper hands the
-kernel), hold the emulation and the
-plain version against fp64 in fp32 and bf16 at ragged shapes, and run the
+On the CPU the kernel cannot run: these tests emulate its walk in
+PyTorch (with ``split_plan``, the plan the wrapper hands the kernel: row
+tiles and column chunks, each block's run of units, the lanes of a row,
+the shuffle tree, the block-ordered sum of shared tiles), hold the
+emulation and the plain version against fp64 in fp32 and bf16 at ragged
+shapes, and run the
 TPU kernel it replaces (tools/measure_matvec.py:_matvec_kernel) in Pallas
 interpret mode against the plain version on the same bits. The test
 marked ``cuda`` runs the kernel itself and skips without a card.
@@ -17,10 +19,15 @@ import pytest
 import torch
 
 from krylov_crn_tpu_torch.ops.matvec import (
-    UNROLL,
+    BLOCKS_PER_SM,
+    GRID,
+    SMS,
+    THREADS,
     matvec,
     matvec_plain,
+    smem_bytes,
     split_plan,
+    unit_start,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -40,44 +47,82 @@ def _rel(y, K, x):
                  / torch.linalg.norm(want))
 
 
-def _lane_columns(c0, c1, lane, V):
-    """Columns lane ``lane`` of a warp visits for a split [c0, c1), in
-    its accumulation order (csrc/matvec.cu: matvec_rows)."""
-    step = 32 * V
-    out = []
-    for base in range(c0, c1, step * UNROLL):
-        for u in range(UNROLL):
-            c = base + u * step + lane * V
-            out.extend(range(c, min(c + V, c1)))
-    return out
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _lane_vectors(tcv, lpr, lane):
+    """The 16-byte vectors of a row chunk that lane ``lane`` of the row's
+    ``lpr`` lanes reads, in its accumulation order (csrc/matvec.cu:
+    matvec_stream)."""
+    return list(range(lane, tcv, lpr))
 
 
 def _emulate(K, x):
-    """The kernel's scheme in PyTorch (fp32): pass 1 gives one partial
-    per (split, row) from 32 lane sums folded by the shuffle-down tree,
-    pass 2 sums the splits in order. Also returns how often each column
-    was visited."""
+    """The kernel's walk in PyTorch (fp32): each block of the plan takes
+    its run of (row tile, column chunk) units in order; lane g of a row
+    accumulates the elements of its vectors (``_lane_vectors``) over the
+    tile's chunks that the block holds; the shuffle-down tree folds the
+    lanes; a tile wholly inside a block writes y, a shared one leaves a
+    partial in the block's first or last slot, and the shared tiles'
+    partials are summed in block order. Also returns how often each
+    column was visited for each row tile."""
     n, m = K.shape
     V = 16 // K.element_size()
-    splits, width = split_plan(n, m, K.element_size())
-    Kf = K.float()
-    seen = torch.zeros(m, dtype=torch.int64)
-    W = torch.full((splits, n), float("nan"))
-    for s in range(splits):
-        c0, c1 = s * width, min(m, (s + 1) * width)
-        acc = torch.zeros(n, 32)
-        for lane in range(32):
-            for c in _lane_columns(c0, c1, lane, V):
-                acc[:, lane] = acc[:, lane] + Kf[:, c] * x[c]
-                seen[c] += 1
-        for off in (16, 8, 4, 2, 1):
-            acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
-        W[s] = acc[:, 0]
-    assert not torch.isnan(W).any(), "a workspace slot was never written"
-    y = W[0].clone()
-    for s in range(1, splits):
-        y = y + W[s]
-    return y, seen
+    p = split_plan(n, m, K.element_size())
+    tiles = _cdiv(n, p.tr)
+    width = p.ct * p.tcv * V
+    Kp = torch.zeros(tiles * p.tr, width)
+    Kp[:n, :m] = K.float()
+    xp = torch.zeros(width)
+    xp[:m] = x
+    seen = torch.zeros(width, dtype=torch.int64)
+    y = torch.full((n,), float("nan"))
+    W = torch.full((p.grid, 2, p.tr), float("nan"))
+    lanes = torch.arange(p.lpr)
+    for b in range(p.grid):
+        u0 = unit_start(b, p.units, p.grid)
+        u1 = unit_start(b + 1, p.units, p.grid)
+        assert u1 > u0, "a block without work"
+        acc = torch.zeros(p.tr, p.lpr)
+        for u in range(u0, u1):
+            t, c = divmod(u, p.ct)
+            rows = Kp[t * p.tr:(t + 1) * p.tr]
+            for k in range(_cdiv(p.tcv, p.lpr)):
+                js = lanes + k * p.lpr
+                live = js < p.tcv
+                for i in range(V):
+                    cols = (c * p.tcv + js[live]) * V + i
+                    acc[:, live] = acc[:, live] + rows[:, cols] * xp[cols]
+                    seen[cols] += 1
+            if c == p.ct - 1 or u == u1 - 1:
+                off = p.lpr // 2
+                while off:
+                    acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
+                    off //= 2
+                r0, r1 = t * p.tr, min(n, (t + 1) * p.tr)
+                if t * p.ct >= u0 and (t + 1) * p.ct <= u1:
+                    y[r0:r1] = acc[:r1 - r0, 0]
+                else:
+                    W[b, 0 if t == u0 // p.ct else 1, :r1 - r0] = \
+                        acc[:r1 - r0, 0]
+                acc = torch.zeros(p.tr, p.lpr)
+    if p.combine:
+        for t in range(tiles):
+            owners = [b for b in range(p.grid)
+                      if unit_start(b, p.units, p.grid) < (t + 1) * p.ct
+                      and unit_start(b + 1, p.units, p.grid) > t * p.ct]
+            if len(owners) < 2:
+                continue
+            r0, r1 = t * p.tr, min(n, (t + 1) * p.tr)
+            s = None
+            for b in owners:
+                slot = 0 if unit_start(b, p.units, p.grid) // p.ct == t else 1
+                part = W[b, slot, :r1 - r0]
+                s = part.clone() if s is None else s + part
+            y[r0:r1] = s
+    assert not torch.isnan(y).any(), "a row was never written"
+    return y, seen[:m] // tiles, seen[m:]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -85,28 +130,43 @@ def _emulate(K, x):
                                   (1003, 333)])
 def test_split_walk_emulation_matches_fp64(n, m, dtype):
     K, x = _data(n, m, dtype, seed=n + m)
-    y, seen = _emulate(K, x)
+    y, seen, beyond = _emulate(K, x)
     assert torch.equal(seen, torch.ones(m, dtype=torch.int64)), \
-        "the split walk must visit every column exactly once"
+        "the walk must visit every column of every row tile exactly once"
+    assert torch.all(beyond <= _cdiv(n, split_plan(n, m, K.element_size()).tr))
     assert _rel(y, K, x) < TOL
     assert _rel(matvec_plain(K, x), K, x) < TOL
     np.testing.assert_allclose(y.numpy(), matvec_plain(K, x).numpy(),
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n, m, itemsize, splits", [
-    (20480, 20480, 4, 1), (20480, 20480, 2, 1),  # the tool's shape
-    (49749, 300, 4, 1), (49749, 300, 2, 1),  # w8a's A: many short rows
-    (300, 49749, 4, 25), (300, 49749, 2, 25),  # w8a's A^T: few long rows
-    (1003, 3333, 4, 7), (1, 1, 2, 1),
+@pytest.mark.parametrize("n, m, itemsize, plan", [
+    # (lanes per row, column chunks, grid, combine)
+    (20480, 20480, 4, (32, 40, GRID, True)),  # the tool's shape
+    (20480, 20480, 2, (32, 20, GRID, True)),
+    (49749, 300, 4, (16, 1, SMS, False)),  # w8a's A: many short rows
+    (49749, 300, 2, (8, 1, SMS, False)),
+    (300, 49749, 4, (32, 49, SMS, True)),  # w8a's A^T: few long rows
+    (300, 49749, 2, (32, 25, SMS, True)),
+    (1003, 3333, 4, (32, 4, SMS, True)), (1, 1, 2, (1, 1, 1, False)),
 ])
-def test_split_plan(n, m, itemsize, splits):
-    s, width = split_plan(n, m, itemsize)
-    assert s == splits
-    chunk = UNROLL * 32 * (16 // itemsize)
-    assert width % chunk == 0 and (s - 1) * width < m <= s * width
-    # A^T's few long rows still put thousands of warps on the card
-    assert n * s >= min(n * -(-m // chunk), 7000)
+def test_split_plan(n, m, itemsize, plan):
+    p = split_plan(n, m, itemsize)
+    assert (p.lpr, p.ct, p.grid, p.combine) == plan
+    V = 16 // itemsize
+    assert p.tr * p.lpr == THREADS and 32 % p.lpr == 0
+    assert (p.ct - 1) * p.tcv * V < m <= p.ct * p.tcv * V
+    assert p.units == _cdiv(n, p.tr) * p.ct and 1 <= p.grid <= p.units
+    # every block's run is the same number of units, give or take one
+    runs = {unit_start(b + 1, p.units, p.grid) - unit_start(b, p.units, p.grid)
+            for b in range(p.grid)}
+    assert max(runs) - min(runs) <= 1
+    # the ring (STAGES slots of a tile and, chunked, its x) and the staged
+    # x fit as many times as the grid puts blocks on an SM (at most
+    # BLOCKS_PER_SM) in an SM's 227 KB of shared memory
+    per_sm = _cdiv(p.grid, SMS)
+    assert per_sm <= BLOCKS_PER_SM
+    assert per_sm * smem_bytes(p, itemsize) <= 232448
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
@@ -182,7 +242,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n, m", [(4096, 4096), (3000, 300), (300, 30000),
-                                  (1003, 3333)])
+                                  (1003, 3333), (5120, 20480), (49749, 300),
+                                  (300, 49749), (8, 300000)])
 def test_matvec_kernel_on_card(cuda_device, n, m, dtype):
     K, x = _data(n, m, dtype, seed=n * m)
     K, x = K.to(cuda_device), x.to(cuda_device)

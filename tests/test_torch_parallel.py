@@ -331,6 +331,66 @@ def test_run_ranks_reports_a_failed_rank_and_a_timeout():
         run_ranks(_hang, 2, "gloo", CPU, 3.0)
 
 
+DRIFT_LIMIT_S = 60.0  # well inside run_ranks's join limit
+
+
+def _drifting_rank(mesh):
+    """The fused fp32 Gram race on a row-banded K, where rank 1 flips the
+    lowest bit of one zeta entry after the second chunk: every rank must
+    stop at that chunk boundary with the same error, not hang."""
+    import time
+
+    from krylov_crn_tpu_torch.solvers import krylov_gram as kg
+
+    A, b, x0 = _problem(520, 700, 0.05, 9, 4)
+    g = GramKrylov(loss=LogisticRegression(A, b, dtype=np.float32,
+                                           device=CPU),
+                   reg_coef=1e-3, subspace_dim=8, tolerance=0, mesh=mesh)
+    multistep = kg.gram_krylov_multistep
+    chunks = []
+
+    def drifting(gd, state, **kw):
+        state, outs = multistep(gd, state, **kw)
+        chunks.append(kw["chunk"])
+        if mesh.rank == 1 and len(chunks) == 2:
+            zeta = state.zeta.clone()
+            zeta.view(torch.int32)[3] ^= 1
+            state = state._replace(zeta=zeta)
+        return state, outs
+
+    kg.gram_krylov_multistep = drifting
+    t0 = time.perf_counter()
+    try:
+        g.run_fused(x0, it_max=12, chunk=4, certify=True)
+        error = None
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        kg.gram_krylov_multistep = multistep
+    return dict(error=error, seconds=time.perf_counter() - t0,
+                counts=mesh.counts_snapshot())
+
+
+def test_ranks_that_drift_apart_raise_on_every_rank():
+    """One flipped bit of replicated state on one rank: both ranks raise
+    the same RuntimeError at the next chunk boundary, naming zeta and rank
+    1, within DRIFT_LIMIT_S; the hash exchange is counted apart from the
+    race's all-gathers."""
+    import time
+
+    t0 = time.monotonic()
+    res = run_ranks(_drifting_rank, 2, "gloo", CPU, JOIN_S)
+    assert time.monotonic() - t0 < DRIFT_LIMIT_S
+    assert res[0]["error"] is not None
+    assert res[0]["error"] == res[1]["error"]
+    assert "zeta on ranks [1] differs from rank 0" in res[0]["error"]
+    assert "gamma" not in res[0]["error"]
+    for r in res:
+        assert r["seconds"] < DRIFT_LIMIT_S
+        assert r["counts"]["digest"]["calls"] == 2
+        assert r["counts"]["digest"]["max_numel"] == 2 * 8  # 8 fields
+
+
 def test_build_gram_refuses_indivisible_mesh():
     from krylov_crn_tpu_torch.ops.gram import build_gram
     from krylov_crn_tpu_torch.parallel.mesh import Mesh
