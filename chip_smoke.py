@@ -22,6 +22,19 @@ Phases (each raises on failure, so the exit code is non-zero):
             by less than 1e-6 of the fp64 product's norm), and both timed
             with CUDA events (median of 25 chained calls); repeated on
             phase 14's K (n_pad 20224), the other shape SYMV is driven at;
+5a. bf16_head GramKrylov(bf16_head=True, m=10) on phase 4's K and f*,
+            K_lr = K in bf16: run_fused(it_max=96, chunk=24, certify=True)
+            to a certified 1e-8 gap within 96 iterations (the JAX package
+            crossed at 57 with the head, 33 without), exact boundary values
+            that never rise, the switch to the fp32 K (its iteration is
+            printed), bf16 matvec launches at the K's shape equal to the
+            head's Lanczos products on the card (> 0) and every fp32
+            K-matvec through SYMV; the card's K_lr against the CPU's
+            rounding of K bit for bit, one bf16 product against its plain
+            version on the bf16-rounded q (relative error against fp64 of
+            the same function below 1e-6, bitwise repeatable), and a step's
+            device time for 10 bf16 products and the fp32 image refresh
+            against 10 SYMVs; repeated on phase 14's K with it_max 48;
 6. small    an n = 4096 problem in fp32 on the card against the port's fp64
             CPU run (held against the JAX package by the CPU tests): the
             certified fp32 optimum is no more than 1e-8 above the fp64 one;
@@ -36,13 +49,14 @@ Phases (each raises on failure, so the exit code is non-zero):
             reg bit for bit, exact values that never rise, and every
             K-matvec through the SYMV kernel;
 7. matvec   the dense matvec kernel against its plain version and an fp64
-            product, fp32 and bf16 K at (20480, 20480), the (5120, 20480)
+            product, fp32 and bf16 K at (20480, 20480), (20224, 20224), the
+            (5120, 20480)
             row band of phase 18, w8a's (49749, 300) and (300, 49749), and
             a ragged (1003, 3333): relative error below 1e-6, bitwise
             reproducible, with its plan, shared memory and blocks per SM;
             kernel, plain and torch.mv timed with CUDA events
             (utils/profiling, each call with a cold L2) at n = 20480, on
-            the band and on w8a's padded copies;
+            the band, on bf16 K at 20224 and on w8a's padded copies;
 8. dense    the d-space path on the w8a-like stand-in (49749 x 300, fp32 on
             the card, dense branch): CubicKrylov(m=10) for 100 iterations
             and CubicNewton("full") for 20, every iterate's loss
@@ -140,7 +154,8 @@ solver (each phase resets the counts just before and reads them just
 after). The matvec kernel has a record for each shape a path launches it
 at, its launches there beside its times at that shape: w8a-like's A
 (49749, 300) and A^T (300, 49749) on the d-space paths (counted by shape,
-matvec.shape_launches), and the mesh path's band (5120, 20480). Prints
+matvec.shape_launches), the mesh path's band (5120, 20480), and the bf16
+K of the head at (20480, 20480) and (20224, 20224). Prints
 the whole run's seconds, a JSON line of kernel records, then a last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -176,6 +191,9 @@ SSCN_ITS = 20
 SKEW_K_TOL = 1e-5  # fp32-class error of the panel GEMMs
 STRESS_REL_TOL = 1e-5  # fp32 segment sums of ~100 products against fp64
 STRESS_ADJ_TOL = 1e-4  # fp32 products, both sides summed in fp64
+# the bf16 head's race limits: the JAX package crossed rcv1-like's 1e-8 at
+# iteration 57 with the head (33 without); news20-like keeps the fp32 limit
+BF16_HEAD_ITS = {"rcv1-like": 96, "news20-like": 48}
 
 
 def _symmetric(n, gen, device):
@@ -371,6 +389,28 @@ def phase_kernel(dev):
     return out
 
 
+def _certified_crossing(tag, trace, f_star, it_max):
+    """The certified gaps of a fused Gram race against ``f_star``: raises
+    unless the gap falls to GAP within ``it_max`` iterations, the exact
+    boundary values never rise and the loss trace is finite. Returns
+    (exact iterations, gaps, crossing iteration, its time into the race,
+    boundary values)."""
+    its = list(trace.metrics["exact_its"])
+    gaps = [float(v) - f_star for v in trace.metrics["exact_fs"]]
+    cross = next((it for it, g in zip(its, gaps) if g <= GAP), None)
+    cross_t = dict(zip(trace.its, trace.ts)).get(cross)
+    bfs = list(trace.metrics["boundary_fs"])
+    if cross is None or cross > it_max:
+        raise RuntimeError(f"{tag}: no certified {GAP} gap within {it_max} "
+                           f"iterations (best {min(gaps):.3e})")
+    if any(b2 > b1 for b1, b2 in zip(bfs, bfs[1:])):
+        raise RuntimeError(f"{tag}: exact boundary values increased: {bfs}")
+    lv = np.asarray(trace.loss_vals)
+    if lv.shape != (len(trace.its),) or not np.all(np.isfinite(lv)):
+        raise RuntimeError(f"{tag}: bad loss trace: shape {lv.shape}")
+    return its, gaps, cross, cross_t, bfs
+
+
 def _gram_race(tag, name, dev):
     """The Gram-space main path on the stand-in ``name``: device K build,
     the m=10 race with certification, f* from an m=20 run on the same K,
@@ -411,36 +451,25 @@ def _gram_race(tag, name, dev):
     launches, calls = symv.launches, k_matvec.cuda_calls
 
     f_star = float(loss.f_opt)
-    its = list(trace.metrics["exact_its"])
     fs = [float(v) for v in trace.metrics["exact_fs"]]
-    gaps = [f - f_star for f in fs]
-    cross = next((it for it, g in zip(its, gaps) if g <= GAP), None)
-    it_to_t = dict(zip(trace.its, trace.ts))
-    bfs = list(trace.metrics["boundary_fs"])
     print(f"{tag}: K build {build_s:.3f} s (n_pad {alg.gd.n_padded}), race "
           f"{race_s:.3f} s for {alg.it} iterations, f* run {fstar_s:.3f} s")
-    print(f"{tag}: f* {f_star:.17g}; crossing at iteration {cross} "
-          f"(t {it_to_t.get(cross, float('nan')):.3f} s into the race); "
-          f"final certified gap {gaps[-1]:.3e}, best {min(gaps):.3e}")
-    print(f"{tag}: boundary exact values {bfs}; rollbacks "
-          f"{trace.metrics['rollback_its']}; chunks "
-          f"{len(bfs) + len(trace.metrics['rollback_its'])}")
     print(f"{tag}: symv launches {launches} (race {race_launches}), "
           f"k_matvec calls on the card {calls}")
     if not (launches == calls and race_launches > 0):
         raise RuntimeError(f"{tag}: K-matvecs bypassed the kernel: "
                            f"{launches} launches vs {calls} calls")
-    if cross is None or cross > 48:
-        raise RuntimeError(f"{tag}: no certified {GAP} gap within 48 "
-                           f"iterations (best {min(gaps):.3e})")
-    if any(b2 > b1 for b1, b2 in zip(bfs, bfs[1:])):
-        raise RuntimeError(f"{tag}: exact boundary values increased: {bfs}")
-    lv = np.asarray(trace.loss_vals)
-    if lv.shape != (alg.it + 1,) or not np.all(np.isfinite(lv)):
-        raise RuntimeError(f"{tag}: bad loss trace: shape {lv.shape}")
+    its, gaps, cross, cross_t, bfs = _certified_crossing(tag, trace, f_star,
+                                                         48)
+    print(f"{tag}: f* {f_star:.17g}; crossing at iteration {cross} "
+          f"(t {cross_t:.3f} s into the race); "
+          f"final certified gap {gaps[-1]:.3e}, best {min(gaps):.3e}")
+    print(f"{tag}: boundary exact values {bfs}; rollbacks "
+          f"{trace.metrics['rollback_its']}; chunks "
+          f"{len(bfs) + len(trace.metrics['rollback_its'])}")
     return alg, dict(gen_s=gen_s, build_s=build_s, race_s=race_s,
                      fstar_s=fstar_s, iterations=alg.it, crossing_it=cross,
-                     crossing_t=it_to_t.get(cross), f_star=f_star,
+                     crossing_t=cross_t, f_star=f_star,
                      final_gap=gaps[-1], best_gap=min(gaps),
                      exact_its=its, exact_fs=fs, boundary_fs=bfs,
                      launches=launches,
@@ -455,6 +484,151 @@ def phase_news20(dev):
     """The news20-like stand-in (19,996 x 1,355,191, 22 build panels):
     the same protocol and gates as ``main`` at d = 1.36M."""
     return _gram_race("news20", "news20-like", dev)
+
+
+def phase_bf16_head(dev, tag, alg, fp32_rec, it_max):
+    """The bf16 Lanczos head (GramKrylov(bf16_head=True)) on the K that
+    the fp32 race ``fp32_rec`` built (``alg.gd``), with its f*: the m=10
+    race to a certified 1e-8 gap within ``it_max`` iterations, exact
+    boundary values that never rise, the switch to the fp32 K, every
+    Lanczos product on the bf16 K through the matvec kernel and every fp32
+    K-matvec through SYMV; the card's bf16 K against the CPU's rounding of
+    the same K, one bf16 product against its plain version and fp64, and
+    a step's device time for the 10 bf16 products and the refresh beside
+    10 SYMVs."""
+    import dataclasses
+
+    import torch
+
+    from krylov_crn_tpu_torch import GramKrylov
+    from krylov_crn_tpu_torch.ops.matvec import matvec, matvec_plain
+    from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.krylov_gram import (
+        _lr_matvec,
+        _refresh_images,
+    )
+    from krylov_crn_tpu_torch.utils.profiling import (
+        alternating_ms,
+        device_time_per_call,
+    )
+
+    K = alg.gd.K
+    n = K.shape[0]
+    gd = dataclasses.replace(alg.gd, K_lr=K.to(torch.bfloat16))
+    # the card's rounding to bf16 is the CPU's (round to nearest even,
+    # which the CPU tests hold to the JAX package's bits)
+    same = torch.equal(gd.K_lr.view(torch.int16).cpu(),
+                       K.cpu().to(torch.bfloat16).view(torch.int16))
+    print(f"{tag} bf16_head: K_lr ({n} x {n}, {gd.K_lr.numel() * 2 / 1e9:.2f} "
+          f"GB beside K) equals the CPU's rounding of K bit for bit: {same}")
+    if not same:
+        raise RuntimeError(f"{tag} bf16_head: the card's bf16 K differs from "
+                           "the CPU's rounding")
+    loss, f_star = alg.loss, fp32_rec["f_star"]
+    f_opt, x_opt = loss.f_opt, loss.x_opt
+    x0 = np.ones(loss.A_host.shape[1]) * 0.5
+    head = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0,
+                      device=dev, label="gram-bf16-head", gram_data=gd,
+                      bf16_head=True)
+    switch = []
+    enter = head._maybe_enter_fp32_tail
+
+    def watched(grad_norm):
+        lr = head._use_lr
+        enter(grad_norm)
+        if lr and not head._use_lr:
+            # run_fused has just recorded the chunk's gradient norms: the
+            # fp32 K takes over after this many iterations
+            switch.append(len(head.trace.metrics["grad_norm"]))
+
+    head._maybe_enter_fp32_tail = watched
+    head.init_run(x0, 42)
+    head.initialized = True
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = head.run_fused(x0, it_max=it_max, chunk=24, certify=True)
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    cnt = _counts()
+    loss.f_opt, loss.x_opt = f_opt, x_opt  # the fp32 race's f* stays
+    bf16_key = f"{n}x{n}_bfloat16"
+    lr_launches = cnt["matvec_shapes"].get(bf16_key, 0)
+    print(f"{tag} bf16_head: bf16 matvec launches at {bf16_key} "
+          f"{lr_launches}, _lr_matvec calls on the card {cnt['lr_calls']}; "
+          f"symv launches {cnt['symv']}, k_matvec calls {cnt['kmatvec_calls']}")
+    if not (lr_launches == cnt["lr_calls"] and lr_launches > 0):
+        raise RuntimeError(f"{tag} bf16_head: bf16 products bypassed the "
+                           f"kernel: {lr_launches} launches vs "
+                           f"{cnt['lr_calls']} calls")
+    if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
+        raise RuntimeError(f"{tag} bf16_head: fp32 K-matvecs bypassed SYMV")
+    its, gaps, cross, cross_t, bfs = _certified_crossing(
+        f"{tag} bf16_head", trace, f_star, it_max)
+    print(f"{tag} bf16_head: race {race_s:.3f} s for {head.it} iterations "
+          f"(fp32 race {fp32_rec['race_s']:.3f} s for "
+          f"{fp32_rec['iterations']}); crossing at iteration {cross}, "
+          f"{cross_t:.3f} s into the race (fp32 {fp32_rec['crossing_it']}, "
+          f"{fp32_rec['crossing_t']:.3f} s); switch to the fp32 K after "
+          f"iteration {switch}; final certified gap {gaps[-1]:.3e}, best "
+          f"{min(gaps):.3e}; rollbacks {trace.metrics['rollback_its']}")
+    if not switch:
+        raise RuntimeError(f"{tag} bf16_head: the switch to the fp32 K never "
+                           "fired")
+
+    # one product at the path's shape: the kernel against its plain
+    # version on the bf16-rounded q, both against fp64 of the same function
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.rand(n, generator=gen, device=dev).to(torch.bfloat16).float()
+    y, y2, yp = matvec(gd.K_lr, q), matvec(gd.K_lr, q), matvec_plain(gd.K_lr, q)
+    ref = gd.K_lr.double() @ q.double()
+    torch.cuda.synchronize()
+    rel, rel_plain = _rel(y, ref), _rel(yp, ref)
+    err = float((y - yp).abs().max())
+    print(f"{tag} bf16_head: bf16 product rel err {rel:.3e} (plain "
+          f"{rel_plain:.3e}), max |kernel - plain| {err:.3e}")
+    if not rel < MATVEC_TOL:
+        raise RuntimeError(f"{tag} bf16_head: bf16 matvec rel err {rel:.3e}")
+    if not torch.equal(y, y2):
+        raise RuntimeError(f"{tag} bf16_head: bf16 matvec not bitwise "
+                           "reproducible")
+
+    # a step's device time: the head's 10 bf16 products and the refresh of
+    # the 10 images, against the tail's 10 SYMVs (both with a cold L2)
+    Vw = torch.rand((10, n), generator=gen, device=dev) * 1e-3
+    Vb = torch.rand(10, generator=gen, device=dev)
+
+    def head_products(x):
+        for _ in range(10):
+            y = _lr_matvec(gd.K_lr, x)
+        _refresh_images(gd, Vb, Vw)
+        return y
+
+    def fp32_products(x):
+        for _ in range(10):
+            y = symv(K, x)
+        return y
+
+    x = torch.rand(n, generator=gen, device=dev)
+    hms, sms = alternating_ms(head_products, fp32_products, x, reps=9,
+                              flush_l2=True)
+    refresh_ms = device_time_per_call(lambda v: _refresh_images(gd, Vb, Vw)[0],
+                                      x, reps=9, flush_l2=True)
+    print(f"{tag} bf16_head: per step, 10 bf16 products + refresh {hms} ms "
+          f"(refresh alone {refresh_ms:.4f} ms) against 10 SYMVs {sms} ms")
+    del gd, head
+    torch.cuda.empty_cache()
+    return dict(race_s=race_s, iterations=its[-1] if its else 0,
+                crossing_it=cross, crossing_t=cross_t, switch_it=switch[0],
+                final_gap=gaps[-1],
+                best_gap=min(gaps), boundary_fs=bfs,
+                rollback_its=list(trace.metrics["rollback_its"]),
+                lr_launches=lr_launches, lr_calls=cnt["lr_calls"],
+                symv_launches=cnt["symv"], rel_err=rel,
+                rel_err_plain=rel_plain, max_abs_err=err,
+                step_head_ms=hms, step_symv_ms=sms, refresh_ms=refresh_ms,
+                fp32_race_s=fp32_rec["race_s"],
+                fp32_crossing_it=fp32_rec["crossing_it"])
 
 
 def phase_kernel_on_K(dev, K, tag="rcv1-like"):
@@ -649,9 +823,13 @@ def phase_matvec(dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {"cases": {}, "max_abs_err": 0.0}
+    # timed: the tool's shape, the mesh band, and the bf16 K of the head
+    # on each Gram problem (rcv1-like's n_pad 20480, news20-like's 20224)
+    timed = {(20480, 20480, torch.float32), (20480, 20480, torch.bfloat16),
+             (5120, 20480, torch.float32), (20224, 20224, torch.bfloat16)}
     # (5120, 20480): the row band of rcv1-like's K under a mesh of four
-    for n, m in ((20480, 20480), (5120, 20480), (49749, 300), (300, 49749),
-                 (1003, 3333)):
+    for n, m in ((20480, 20480), (20224, 20224), (5120, 20480), (49749, 300),
+                 (300, 49749), (1003, 3333)):
         K32 = torch.randn((n, m), generator=gen, device=dev)
         x = torch.randn(m, generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -675,7 +853,7 @@ def phase_matvec(dev):
             out["cases"][key] = dict(plan=tuple(plan), rel_err=rel,
                                      rel_err_plain=rel_plain, max_abs_err=err)
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            if m == 20480 and (n == 20480 or dtype == torch.float32):
+            if (n, m, dtype) in timed:
                 kms, pms = alternating_ms(lambda v: matvec(K, v),
                                            lambda v: matvec_plain(K, v), x,
                                            flush_l2=True)
@@ -850,8 +1028,9 @@ def _reset_counts():
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.krylov_gram import _lr_matvec
 
-    symv.launches = k_matvec.cuda_calls = 0
+    symv.launches = k_matvec.cuda_calls = _lr_matvec.cuda_calls = 0
     matvec.launches = dense_matvec.cuda_calls = 0
     matvec.shape_launches = {}
 
@@ -861,8 +1040,10 @@ def _counts():
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.krylov_gram import _lr_matvec
 
     return dict(symv=symv.launches, kmatvec_calls=k_matvec.cuda_calls,
+                lr_calls=_lr_matvec.cuda_calls,
                 matvec=matvec.launches, dense_calls=dense_matvec.cuda_calls,
                 matvec_shapes={f"{n}x{m}_{dt}": k for (n, m, dt), k
                                in matvec.shape_launches.items()})
@@ -1583,6 +1764,8 @@ def main(argv=None):
               "kernel": phase_kernel(dev)}
     alg, record["main"] = phase_main(dev)
     record["kernel_on_K"] = phase_kernel_on_K(dev, alg.gd.K)
+    record["bf16_head"] = {"rcv1-like": phase_bf16_head(
+        dev, "main", alg, record["main"], BF16_HEAD_ITS["rcv1-like"])}
     del alg
     torch.cuda.empty_cache()
     record["small"] = phase_small(dev)
@@ -1600,6 +1783,9 @@ def main(argv=None):
     news20_alg, record["news20"] = phase_news20(dev)
     record["kernel_on_K_news20"] = phase_kernel_on_K(
         dev, news20_alg.gd.K, "news20-like")
+    record["bf16_head"]["news20-like"] = phase_bf16_head(
+        dev, "news20", news20_alg, record["news20"],
+        BF16_HEAD_ITS["news20-like"])
     record["figure2"] = phase_figure2(news20_alg)
     del news20_alg
     torch.cuda.empty_cache()
@@ -1643,7 +1829,9 @@ def main(argv=None):
                      + record["rollback"]["launches"]
                      + record["cli_gram"]["launches"]
                      + record["news20"]["launches"]
-                     + fig["news20-like"]["launches"]),
+                     + fig["news20-like"]["launches"]
+                     + sum(h["symv_launches"]
+                           for h in record["bf16_head"].values())),
         "max_abs_err": max(kk["max_abs_err"],
                            record["kernel_on_K_news20"]["max_abs_err"],
                            record["skew"]["max_abs_err"]),
@@ -1662,7 +1850,13 @@ def main(argv=None):
                       mv["cases"]["300x49749_float32"]["max_abs_err"]),
         matvec_record("matvec_band_5120x20480", "5120x20480_float32",
                       record["mesh"]["band_launches"],
-                      record["mesh"]["band_max_abs_err"])]}
+                      record["mesh"]["band_max_abs_err"])] + [
+        # the bf16 path at the shape of each Gram problem's K, launched by
+        # the head's Lanczos products (phase bf16_head)
+        matvec_record(f"matvec_bf16_K_{n}x{n}", f"{n}x{n}_bfloat16",
+                      record["bf16_head"][name]["lr_launches"],
+                      record["bf16_head"][name]["max_abs_err"])
+        for name, n in (("rcv1-like", 20480), ("news20-like", 20224))]}
     for rec in kernels["kernels"]:
         if rec["launches"] <= 0:
             raise RuntimeError(f"{rec['name']}: no launch on its path")

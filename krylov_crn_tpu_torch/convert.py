@@ -29,14 +29,25 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _bf16_tensor(a, device):
+    """A bf16 leaf bit for bit: after ``jax.device_get`` it is an
+    ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy``
+    rejects, so its 16-bit words travel as uint16."""
+    words = np.ascontiguousarray(a).view(np.uint16)
+    return torch.from_numpy(words.copy()).view(torch.bfloat16).to(device)
+
+
 def gram_data_from_numpy(gd, device=None) -> GramData:
     """The port's GramData from the leaves of a JAX ``GramData`` (K, Ax0,
-    b, mask, x0_sqnorm, n, d, nnz; its bf16 copy K_lr is not carried)."""
+    b, mask, x0_sqnorm, its bf16 copy K_lr where it has one, n, d,
+    nnz)."""
     dev = resolve_device(device)
+    K_lr = getattr(gd, "K_lr", None)
     return GramData(
         K=_tensor(gd.K, dev), Ax0=_tensor(gd.Ax0, dev), b=_tensor(gd.b, dev),
         mask=_tensor(gd.mask, dev), x0_sqnorm=_tensor(gd.x0_sqnorm, dev),
-        n=int(gd.n), d=int(gd.d), nnz=int(gd.nnz))
+        n=int(gd.n), d=int(gd.d), nnz=int(gd.nnz),
+        K_lr=None if K_lr is None else _bf16_tensor(K_lr, dev))
 
 
 def _state(cls, st, device):

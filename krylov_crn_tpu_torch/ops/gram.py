@@ -23,11 +23,28 @@ with the replicated vector, a rectangular dense matvec through the matvec
 kernel on a card (ops/matvec.py), followed by one all-gather of the
 n_pad/D-row results. SYMV is off under a mesh, as in the JAX package: a
 band holds no whole upper triangle.
+
+``GramData.K_lr`` is an optional bf16 copy of K (of the band under a
+mesh), K rounded to nearest even. ``GramKrylov(bf16_head=True)`` runs the
+Lanczos matvecs of its first iterations on it, the bf16 path of the
+matvec kernel on a card; margins, gradients and the basis images that the
+line search reads keep the fp32 K. ``build_gram`` makes it by default for
+fp32 and never for fp64, as the JAX package does. It costs n_pad^2 * 2
+bytes beside K (0.84 GB at rcv1-like's n_pad 20480, 0.82 GB at
+news20-like's 20224). On the TPU it halved a Lanczos matvec's bytes; on
+the card it saves none: a whole bf16 K (n_pad^2 * 2 bytes) is what SYMV
+reads of the fp32 K's upper triangle.
+
+``build_gram(cache_dir=)`` keeps the host-built K as ``.npy`` files named
+by the JAX package's ``_cache_key`` and the dtype, so that an fp64 build
+never reads an fp32 file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -59,7 +76,14 @@ def pad_rows(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GramData:
-    """Dense Gram-space problem data (rows padded to n_pad)."""
+    """Dense Gram-space problem data (rows padded to n_pad).
+
+    ``K_lr`` (optional) is a bf16 copy of K, or of this rank's band under
+    a mesh, for the Lanczos matvecs of the bf16 head
+    (``GramKrylov(bf16_head=True)``); ``K_lanczos`` is it where it exists,
+    else K. It adds n_pad^2 * 2 bytes. The card's bf16 matvec reads as many
+    bytes as the fp32 SYMV reads of K's upper triangle, so on the card the
+    head saves no bandwidth."""
 
     # (n_pad, n_pad) Gram matrix A A^T, bitwise symmetric; under a mesh of
     # D ranks this rank's (n_pad / D, n_pad) row band of it
@@ -72,10 +96,28 @@ class GramData:
     d: int
     nnz: int
     mesh: object | None = None  # parallel.mesh.Mesh of several ranks
+    K_lr: torch.Tensor | None = None  # bf16 copy of K (or of its band)
 
     @property
     def n_padded(self) -> int:
         return self.Ax0.shape[0]
+
+    @property
+    def K_lanczos(self):
+        return self.K if self.K_lr is None else self.K_lr
+
+
+def _cache_key(A, x0) -> str:
+    """The JAX package's key of a cached K (the same hex digest): A's row
+    pointers, its first 4096 column indices and values, x0 and A's shape.
+    It leaves out the dtype; ``build_gram`` puts that in the file name."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(A.indptr).tobytes())
+    h.update(np.ascontiguousarray(A.indices[:4096]).tobytes())
+    h.update(np.ascontiguousarray(A.data[:4096]).tobytes())
+    h.update(np.asarray(x0).tobytes())
+    h.update(str(A.shape).encode())
+    return h.hexdigest()[:16]
 
 
 def _heavy_skew(lens, nnz: int) -> bool:
@@ -148,18 +190,44 @@ def build_K_device(A, n_pad: int, dtype, device):
     return K.mul_(0.5)
 
 
-def build_gram(A, b, x0, dtype=np.float32, device=None,
+def _host_K(A, x0, dtype, cache_dir):
+    """scipy's A A^T (n x n, ``dtype``) on the host, read from and saved
+    to ``cache_dir`` when given. The file holds what the JAX package's
+    cache holds, under the JAX package's key, with the dtype added to its
+    name: the JAX package's name has none, so there an fp64 build after an
+    fp32 one reads the fp32 K."""
+    dtype = np.dtype(dtype)
+    cache_file = None
+    if cache_dir is not None:
+        Path(cache_dir).mkdir(parents=True, exist_ok=True)
+        cache_file = (Path(cache_dir)
+                      / f"gram_{_cache_key(A, x0)}_{dtype.name}.npy")
+        if cache_file.exists():
+            return np.load(cache_file)
+    K = np.asarray((A @ A.T).todense(), dtype)
+    if cache_file is not None:
+        np.save(cache_file, K)
+    return K
+
+
+def build_gram(A, b, x0, dtype=np.float32, cache_dir: str | None = None,
+               low_res_lanczos: bool | None = None, device=None,
                device_build: bool | None = None, mesh=None) -> GramData:
     """GramData from a scipy CSR matrix on ``device``.
 
     ``device_build`` (default: True on a card) builds K on the device
     (build_K_device); otherwise K is scipy's ``A @ A.T`` on the host, as
-    the JAX package's ``build_gram(device_build=False)`` does.
+    the JAX package's ``build_gram(device_build=False)`` does, kept in
+    ``cache_dir`` when given (``gram_{key}_{dtype}.npy``; a device build
+    ignores the cache, as in the JAX package).
+
+    ``low_res_lanczos`` (default: on for fp32, off for fp64) adds
+    ``K_lr``, K in bf16.
 
     ``mesh`` (several ranks; every rank calls this with the same A): the
-    data lies on the mesh's device and K is this rank's row band. Each
-    rank still builds the whole K and keeps a copy of its band, so a band
-    holds the bits of the single-device K."""
+    data lies on the mesh's device and K (and K_lr) is this rank's row
+    band. Each rank still builds the whole K and keeps a copy of its band,
+    so a band holds the bits of the single-device K."""
     A = A.tocsr()
     n, d = map(int, A.shape)
     n_pad = pad_rows(n)
@@ -177,11 +245,13 @@ def build_gram(A, b, x0, dtype=np.float32, device=None,
         K = build_K_device(A, n_pad, dtype, dev)
     else:
         Kp = np.zeros((n_pad, n_pad), dtype)
-        Kp[:n, :n] = np.asarray((A @ A.T).todense(), dtype)
+        Kp[:n, :n] = _host_K(A, x0, dtype, cache_dir)
         K = torch.from_numpy(Kp).to(dev)
     if mesh is not None:
         band = n_pad // mesh.world
         K = K[mesh.rank * band:(mesh.rank + 1) * band].clone()
+    if low_res_lanczos is None:
+        low_res_lanczos = np.dtype(dtype) == np.float32
     Ax0 = np.zeros(n_pad, dtype)
     Ax0[:n] = A @ x0
     bp = np.zeros(n_pad, dtype)
@@ -193,7 +263,8 @@ def build_gram(A, b, x0, dtype=np.float32, device=None,
         K=K, Ax0=aux[0], b=aux[1], mask=aux[2],
         x0_sqnorm=torch.tensor(float(x0 @ x0), dtype=as_torch_dtype(dtype),
                                device=dev),
-        n=n, d=d, nnz=int(A.nnz), mesh=mesh)
+        n=n, d=d, nnz=int(A.nnz), mesh=mesh,
+        K_lr=K.to(torch.bfloat16) if low_res_lanczos else None)
 
 
 def k_matvec(K, q, mesh=None):

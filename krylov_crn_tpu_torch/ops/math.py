@@ -11,7 +11,9 @@ The error-free transforms assume that no FMA contraction and no
 reassociation happen between their operations. Eager PyTorch runs each
 operator as its own kernel, so that holds here. Never wrap these
 functions in ``torch.compile`` or move them into a CUDA source compiled
-with the default ``--fmad=true``.
+with the default ``--fmad=true``. (On the CPU, inductor keeps the eager
+bits of ``two_sum``, ``_split``, ``_two_prod`` and ``sum2`` but reorders
+the plain sum in ``dot2``'s lo: tests/test_torch_compile_folds.py.)
 
 Every reduction works on the last axis and broadcasts over leading
 (batch) axes, so the 21 line-search candidates fold in one pass.

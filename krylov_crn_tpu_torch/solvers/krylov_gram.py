@@ -21,9 +21,17 @@ replicated tensors simply live on each rank. Every rank keeps the host
 scipy matrix and does the exact fp64 reinjection and certification
 itself, on identical inputs.
 
-Left out against the JAX package: the bf16 Lanczos head (default off
-there), margin re-derivation (``run_fused`` passes ``rederive=False``;
-it is the JAX step's (m+2)-th K-matvec) and the relay-link warm-ups.
+``GramKrylov(bf16_head=True)`` (default off, as in the JAX package) runs
+the Lanczos matvecs on the bf16 copy of K (``GramData.K_lr``) until the
+gradient norm has fallen below ``fp32_tail_rtol`` times its first
+reading, then on the fp32 K: a step of the head runs the m Lanczos
+products through the bf16 path of the matvec kernel on a card
+(``_lr_matvec``), and refreshes the basis images through the fp32 K in
+one (m, n_pad) x (n_pad, n_pad) product.
+
+Left out against the JAX package: margin re-derivation (``run_fused``
+passes ``rederive=False``; it is the JAX step's (m+2)-th K-matvec) and
+the relay-link warm-ups.
 """
 
 from __future__ import annotations
@@ -56,8 +64,9 @@ from krylov_crn_tpu_torch.ops.math import (
     softplus,
     two_sum,
 )
+from krylov_crn_tpu_torch.ops.matvec import matvec
 from krylov_crn_tpu_torch.ops.subproblem import secular_newton, tridiag_eigh
-from krylov_crn_tpu_torch.parallel.mesh import check_replicated
+from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows, check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 
 __all__ = ["GramKrylov", "GramKrylovState", "gram_krylov_step",
@@ -169,6 +178,38 @@ def _mm(a, b):
     return torch.matmul(a, b)
 
 
+def _lr_matvec(K_lr, q, mesh=None):
+    """K_lr @ q for the bf16 K with fp32 accumulation, in q's dtype. As
+    in the JAX package (``dot_general`` of K_lr and q in bf16 with an fp32
+    result) q is rounded to bf16 first; every product of two bf16 values
+    is then exact in fp32, and the result differs from the JAX package's
+    by summation order only. On a card this is the bf16 path of the matvec
+    kernel (ops/matvec.py), on the CPU its plain version. Under a ``mesh``
+    of several ranks K_lr is this rank's band: its product, then one
+    all-gather. ``_lr_matvec.cuda_calls`` counts the calls on a card."""
+    if K_lr.is_cuda:
+        _lr_matvec.cuda_calls += 1
+    y = matvec(K_lr, q.to(torch.bfloat16).float())
+    if mesh is not None and mesh.distributed:
+        y = all_gather_rows(mesh, y)
+    return y.to(q.dtype)
+
+
+_lr_matvec.cuda_calls = 0
+
+
+def _refresh_images(gd: GramData, Vb, Vw):
+    """The basis images through the fp32 K: Vu = Vb Ax0 + Vw K (K is
+    symmetric), K streamed once for all m rows. Under a mesh each rank
+    multiplies its band, K_band Vw^T, and one all-gather of the (band, m)
+    results gives the whole (n_pad, m)."""
+    if gd.mesh is not None and gd.mesh.distributed:
+        VwK = all_gather_rows(gd.mesh, _mm(gd.K, Vw.T)).T
+    else:
+        VwK = _mm(Vw, gd.K)
+    return Vb[:, None] * gd.Ax0[None, :] + VwK
+
+
 def _pick(t, idx):
     """t[idx] along the first axis for a 1-element index tensor, without a
     host read of the index."""
@@ -187,13 +228,22 @@ def gram_krylov_step(
     reorth_passes: int = 1,
     accum_dtype=None,
     reg_ceil: float = 1e6,
+    use_lr: bool = True,
 ) -> GramKrylovState:
     """One Krylov-CRN iteration with the batched line search: all
     ls_max + 1 candidate regularizations are solved at once (secular
     Newton over a batch axis, one (L,m)x(m,n) product for all candidate
     margins) and the first acceptable one is selected — the same accept
     decision as the reference's sequential loop (cubic.py:294-303). On an
-    all-reject the iterate is frozen and reg rises one notch."""
+    all-reject the iterate is frozen and reg rises one notch.
+
+    ``use_lr`` with a ``gd.K_lr``: the m Lanczos matvecs run on the bf16
+    K (``_lr_matvec``), and the basis images are then recomputed through
+    the fp32 K, because the line search's trial margins and the committed
+    state read them (bf16's ~2e-3 relative error there accepts steps that
+    raise the true f). The uK matvec stays fp32 (SYMV). Under a mesh such
+    a step makes m + 2 all-gathers (m + 1 without the bf16 K) and no
+    all-reduce."""
     cdt = state.zeta.dtype
     adt = state.zeta.dtype if accum_dtype is None else accum_dtype
     n = gd.n
@@ -217,15 +267,20 @@ def gram_krylov_step(
     g = Rep(beta_g, w_new, u_g)
 
     D = over_n(sig * (1.0 - sig) * gd.mask, n)
+    lr = use_lr and gd.K_lr is not None
 
     def hop(v: Rep) -> Rep:
         q = D * v.u
         w_H = q + (l2 * v.w if l2 else 0.0)
-        u_H = k_matvec(gd.K, q, gd.mesh) + (l2 * v.u if l2 else 0.0)
+        Kq = (_lr_matvec(gd.K_lr, q, gd.mesh) if lr
+              else k_matvec(gd.K, q, gd.mesh))
+        u_H = Kq + (l2 * v.u if l2 else 0.0)
         return Rep(l2 * v.beta, w_H, u_H)
 
     lz = gram_lanczos(gd, hop, g, m, reorth_passes=reorth_passes,
                       accum_dtype=adt)
+    if lr:
+        lz = lz._replace(Vu=_refresh_images(gd, lz.Vb, lz.Vw))
 
     theta, Q = tridiag_eigh(lz.alphas.to(adt), lz.betas.to(adt))
     g_norm = torch.sqrt(torch.clamp(rep_dot(gd, g, g, adt), min=0.0))
@@ -432,15 +487,25 @@ class GramKrylov(Optimizer):
 
     Requires the oracle's host scipy matrix (LogisticRegression keeps it)
     for the one-time K build and the exact host corrections. A pre-built
-    ``gram_data`` (same A, same x0) skips the K build. ``mesh`` (several
-    ranks, every rank constructing the same solver): K row-banded over the
-    ranks on the mesh's device."""
+    ``gram_data`` (same A, same x0) skips the K build and keeps its own
+    ``K_lr``. ``mesh`` (several ranks, every rank constructing the same
+    solver): K row-banded over the ranks on the mesh's device.
+    ``cache_dir``: where a host build of K (on the CPU) keeps it
+    (``build_gram``); a card builds K on the device and reads no cache.
+
+    ``bf16_head`` (fp32 runs): the Lanczos matvecs run on a bf16 copy of K
+    until the gradient norm falls below ``fp32_tail_rtol`` times the first
+    one recorded, then on the fp32 K (``_maybe_enter_fp32_tail``). Off by
+    default, as in the JAX package, where it moved rcv1-like's 1e-8
+    crossing from iteration 33 to 57."""
 
     local_fields = ()  # under a mesh every Gram state field is replicated
 
     def __init__(self, reg_coef=None, subspace_dim=100, solver_eps=1e-8,
                  beta=0.5, solver_it_max=100, ls_max=20, reorth_passes=1,
-                 gram_data=None, device=None, mesh=None, *args, **kwargs):
+                 cache_dir=None, mesh=None, fp32_tail_rtol=1e-3,
+                 gram_data=None, bf16_head=False, device=None, *args,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self._gd_preset = gram_data
         self.mesh = mesh if mesh is not None and mesh.distributed else None
@@ -454,16 +519,40 @@ class GramKrylov(Optimizer):
         self.beta = float(beta)
         self.ls_max = int(ls_max)
         self.reorth_passes = int(reorth_passes)
+        self.cache_dir = cache_dir
+        self.bf16_head = bool(bf16_head)
+        self.fp32_tail_rtol = float(fp32_tail_rtol)
+        self._gn_first = None
+        self._use_lr = self.bf16_head
         self.reg_coef = (self.loss.hessian_lipschitz if reg_coef is None
                          else float(reg_coef))
         self.gd: GramData | None = None
         self._x0_host = None
+
+    def _maybe_enter_fp32_tail(self, grad_norm):
+        """Leave the bf16 K for the fp32 K once the tail begins: when the
+        gradient norm falls below ``fp32_tail_rtol`` times the first one
+        recorded (the JAX package's rule; ``run_fused`` records the first
+        entry of its first accepted chunk). Once off, it stays off for the
+        run."""
+        if not self._use_lr or self.gd is None or self.gd.K_lr is None:
+            return
+        grad_norm = float(grad_norm)
+        if not np.isfinite(grad_norm):
+            return
+        if self._gn_first is None:
+            self._gn_first = grad_norm
+            return
+        if grad_norm < self.fp32_tail_rtol * self._gn_first:
+            self._use_lr = False
 
     def init_state(self, x0, seed):
         loss = self.loss
         A = loss.A_host
         x0h = np.asarray(x0, np.float64)
         self._x0_host = x0h
+        self._gn_first = None
+        self._use_lr = self.bf16_head
         # a second run on the same instance must not reuse the previous
         # run's exact-correction constants
         self._Ax0_64 = None
@@ -508,6 +597,9 @@ class GramKrylov(Optimizer):
             self.gd = gd
         else:
             self.gd = build_gram(A, loss.b[:n_real], x0h, dtype=dtype,
+                                 cache_dir=self.cache_dir,
+                                 low_res_lanczos=self.bf16_head
+                                 and dtype == np.float32,
                                  device=self.device, mesh=self.mesh)
         return _init_state_packed(self.gd.Ax0,
                                   torch.from_numpy(buf).to(self.device), npad)
@@ -523,7 +615,9 @@ class GramKrylov(Optimizer):
 
     def step(self):
         self.state = gram_krylov_step(self.gd, self.state,
+                                      use_lr=self._use_lr,
                                       **self._step_kwargs())
+        self._maybe_enter_fp32_tail(self.state.grad_norm)
 
     # ---- trace integration (checkpoints are reps, not iterates) ----
     def update_trace(self):
@@ -642,8 +736,11 @@ class GramKrylov(Optimizer):
                         f=self.trace.loss_vals[0])
         while self.it < it_max:
             k = int(min(chunk_cur, it_max - self.it))
+            # the bf16 head's switch holds for a whole chunk, as in the
+            # JAX package, where it is a static argument of the chunk
             self.state, outs = gram_krylov_multistep(
-                self.gd, self.state, chunk=k, stack_reps=cert, **kw)
+                self.gd, self.state, chunk=k, stack_reps=cert,
+                use_lr=self._use_lr, **kw)
             vpairs, gns, dns, sits = outs[:4]
             reps = outs[4] if cert else None
             # ONE bundled device-to-host copy per chunk
@@ -704,6 +801,9 @@ class GramKrylov(Optimizer):
                             solver_it=int(sits[k - 1]), f=value64)
             metrics["grad_norm"].extend(gns[:k])
             metrics["diff_norm"].extend(dns[:k])
+            if self._gn_first is None and np.isfinite(gns[0]):
+                self._gn_first = float(gns[0])
+            self._maybe_enter_fp32_tail(np.min(gns[:k]))
             for j in range(k):
                 self.it += 1
                 self.trace.its.append(self.it)

@@ -219,24 +219,35 @@ def leg_f_best(loss, curves) -> float:
     return min(exact)
 
 
-def run_ours(A, b, x0, it_max, sscn_dims, dtype, device=None):
+def run_ours(A, b, x0, it_max, sscn_dims, dtype, device=None,
+             on_curve=None):
     """The port's solvers over the whole grid of one dataset, on
-    ``device`` (default: the card). Returns (curves, f_best)."""
+    ``device`` (default: the card). Returns (curves, f_best).
+    ``on_curve(curves, f_best)`` is called after each algorithm with the
+    curves so far, so that a leg cut short keeps what it finished."""
     n, dim = A.shape
     gram = use_gram(n, dim)
     loss = make_loss(A, b, dtype, device)
     curves = {}
 
+    def done():
+        if on_curve is not None:
+            on_curve(curves, leg_f_best(loss, curves))
+
     curves["CRN"], crn = run_crn(loss, b, x0, it_max, gram)
+    done()
     curves["Krylov CRN (m=10)"], kry = run_krylov(
         loss, b, x0, it_max, gram, m=10, gram_data=getattr(crn, "gd", None))
+    done()
     # the 5x-budget benchmark run (not warmed, as in the JAX tool)
     curves["Benchmark Krylov CRN (m=20)"], _ = run_krylov(
         loss, b, x0, 5 * it_max, gram, m=20,
         gram_data=getattr(kry, "gd", None), label="bench", warm=False,
         t_max=5 * REF_T_MAX)
+    done()
     for m in sscn_dims:
         curves[f"SSCN (m={m})"], _ = run_sscn(loss, b, x0, it_max, m)
+        done()
     return curves, leg_f_best(loss, curves)
 
 
@@ -340,11 +351,18 @@ def run_dataset(name, leg="h100-fp32", it_max=None, out=OUT_DIR):
     os.makedirs(out, exist_ok=True)
     A, b, x0 = build_problem(name)
     meta = leg_meta(name, A, it_max, leg, device)
+    path = os.path.join(out, f"{name}.json")
     t0 = time.perf_counter()
-    curves, f_best = run_ours(A, b, x0, it_max, sscn_dims, dtype, device)
+
+    def save(curves, f_best):
+        merge_json(path, name, leg, curves, f_best, meta)
+        print(f"[{name}] {leg} leg: {list(curves)[-1]} done, "
+              f"{time.perf_counter() - t0:.0f}s")
+
+    curves, f_best = run_ours(A, b, x0, it_max, sscn_dims, dtype, device,
+                              on_curve=save)
     print(f"[{name}] {leg} leg: {time.perf_counter() - t0:.0f}s")
-    return merge_json(os.path.join(out, f"{name}.json"), name, leg, curves,
-                      f_best, meta)
+    return merge_json(path, name, leg, curves, f_best, meta)
 
 
 def plot_dataset(name, out=OUT_DIR):

@@ -616,3 +616,73 @@ def test_gram_step_collective_budget(ranks):
     assert c["all_gather"]["bytes"] == (M_GRAM + 1) * 4 * n_pad
     assert c["all_reduce"]["calls"] == 0
     assert c["all_reduce"]["max_numel"] < 1024
+
+
+# --------------------------- the bf16 head ----------------------------
+
+HEAD_RANKS = 2
+HEAD_REL_TOL = 1e-5  # chip_smoke's MESH_REL_TOL: two summation orders
+
+
+def _head_race(mesh=None):
+    """GramKrylov(bf16_head=True) in fp32, on row bands under ``mesh`` or
+    on one device: the collectives of one step with the bf16 K and of one
+    without it, then the fused race, with the iteration after which the
+    fp32 K took over."""
+    A, b, x0 = _problem(520, 700, 0.05, 9, 4)
+    g = GramKrylov(loss=LogisticRegression(A, b, dtype=np.float32,
+                                           device=CPU),
+                   reg_coef=1e-3, subspace_dim=M_GRAM, tolerance=0,
+                   bf16_head=True, mesh=mesh, device=CPU)
+    out = {}
+    if mesh is not None:
+        st = g.init_state(x0, 42)
+        out["K_lr"] = (tuple(g.gd.K_lr.shape), str(g.gd.K_lr.dtype))
+        for lr in (True, False):
+            mesh.reset_counts()
+            gram_krylov_step(g.gd, st, m=M_GRAM, accum_dtype=torch.float32,
+                             use_lr=lr)
+            out[f"counts_lr_{lr}"] = mesh.counts_snapshot()
+    switch = []
+    enter = g._maybe_enter_fp32_tail
+
+    def watched(grad_norm):
+        lr = g._use_lr
+        enter(grad_norm)
+        if lr and not g._use_lr:
+            switch.append(len(g.trace.metrics["grad_norm"]))
+
+    g._maybe_enter_fp32_tail = watched
+    tr = g.run_fused(x0, it_max=16, chunk=4, certify=True)
+    out.update(switch=switch, exact_its=list(tr.metrics["exact_its"]),
+               exact_fs=[float(f) for f in tr.metrics["exact_fs"]],
+               boundary_fs=[float(f) for f in tr.metrics["boundary_fs"]],
+               n_pad=g.gd.n_padded, zeta=_np(g.state.zeta))
+    return out
+
+
+def test_bf16_head_on_row_bands_matches_one_device():
+    """The head's race on two row bands (K_lr banded like K) against the
+    one-device head race: the switch after the same iteration, exact
+    values within the phase-mesh gate, and per step m + 2 all-gathers with
+    the bf16 K (the refresh gathers the bands' (band, m) images) and m + 1
+    without it, no all-reduce."""
+    res = run_ranks(_head_race, HEAD_RANKS, "gloo", CPU, JOIN_S)
+    one = _head_race()
+    n_pad = one["n_pad"]
+    _replicated(res, "zeta")
+    r = res[0]
+    assert r["K_lr"] == ((n_pad // HEAD_RANKS, n_pad), "torch.bfloat16")
+    head, tail = r["counts_lr_True"], r["counts_lr_False"]
+    assert head["all_gather"]["calls"] == M_GRAM + 2
+    assert head["all_gather"]["bytes"] == (2 * M_GRAM + 1) * 4 * n_pad
+    assert tail["all_gather"]["calls"] == M_GRAM + 1
+    for c in (head, tail):
+        assert c["all_reduce"]["calls"] == 0
+    assert _replicated(res, "switch") == one["switch"]
+    assert len(one["switch"]) == 1
+    assert _replicated(res, "exact_its") == one["exact_its"]
+    np.testing.assert_allclose(_replicated(res, "exact_fs"),
+                               one["exact_fs"], rtol=HEAD_REL_TOL)
+    bfs = _replicated(res, "boundary_fs")
+    assert all(b2 <= b1 for b1, b2 in zip(bfs, bfs[1:]))
