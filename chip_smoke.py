@@ -147,12 +147,23 @@ Phases (each raises on failure, so the exit code is non-zero):
             its byte bound;
             (e) prints whether NCCL is available and, if so, runs one
             all-reduce and one all-gather through the mesh on a one-rank
-            NCCL group.
+            NCCL group;
+19. bench   the port's bench as a user runs it, ``python -m
+            krylov_crn_tpu_torch.bench --reps 2`` in a process of its own
+            (600 s limit): bench.py's races on news20-like and rcv1-like
+            (K build, m=10 race, m=20 f* run, two attempts each), the
+            torch.mv roofline, SYMV and the HVP throughput. Its JSON line
+            must hold every key of bench.py's; both races a certified 1e-8
+            gap within 48 iterations, SYMV launches equal to the K-matvecs
+            on the card (> 0); vs_baseline null (no reference leg), the
+            card's line; its symv_ms within 10% of phase kernel@K's median
+            at n_pad 20480.
 
 The kernel records count the launches of every phase that drives a
 solver (each phase resets the counts just before and reads them just
-after). The matvec kernel has a record for each shape a path launches it
-at, its launches there beside its times at that shape: w8a-like's A
+after; phase bench's process counts its own, per race). The matvec
+kernel has a record for each shape a path launches it at, its launches
+there beside its times at that shape: w8a-like's A
 (49749, 300) and A^T (300, 49749) on the d-space paths (counted by shape,
 matvec.shape_launches), the mesh path's band (5120, 20480), and the bf16
 K of the head at (20480, 20480) and (20224, 20224). Prints
@@ -1750,6 +1761,70 @@ def phase_mesh(card, main_rec, sparse_rec, sscn_rec):
     return out
 
 
+# bench.py's output keys, top level and per race
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "news20", "rcv1",
+              "kmatvec_gbps", "kmatvec_roofline_frac", "symv_ms",
+              "symv_effective_gbps", "coo_hvp_mnnz_per_s", "gap_target")
+BENCH_RACE_KEYS = ("problem", "build_s", "f_star", "ours_gap_reached",
+                   "ours_s", "ours_attempts_s", "ours_final_gap")
+BENCH_REPS = 2
+BENCH_TIMEOUT = 600.0
+BENCH_SYMV_REL = 0.10  # its symv_ms against phase kernel@K's median
+
+
+def phase_bench(card, symv_ms):
+    """The port's bench as a user runs it, in a process of its own:
+    ``python -m krylov_crn_tpu_torch.bench``. Its last line must hold
+    bench.py's keys; both races reach a certified 1e-8 gap within 48
+    iterations, every K-matvec through SYMV; no reference leg; the card's
+    line; its SYMV median within 10% of ``symv_ms`` (phase kernel@K's at
+    n_pad 20480)."""
+    import os
+    import subprocess
+
+    t0 = time.perf_counter()
+    # stderr (each attempt's seconds) goes straight to this run's log
+    proc = subprocess.run(
+        [sys.executable, "-m", "krylov_crn_tpu_torch.bench", "--reps",
+         str(BENCH_REPS)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"bench: exit code {proc.returncode}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"bench ({seconds:.1f} s, --reps {BENCH_REPS}): {line}")
+    out = json.loads(line)
+    missing = [k for k in BENCH_KEYS if k not in out] + [
+        f"{r}.{k}" for r in ("news20", "rcv1") for k in BENCH_RACE_KEYS
+        if k not in out.get(r, {})]
+    if missing:
+        raise RuntimeError(f"bench: keys missing {missing}")
+    launches = 0
+    for r in ("news20", "rcv1"):
+        res, sl = out[r], out[r]["symv_launches"]
+        print(f"bench {r}: {res['ours_s']} s to the gap (build "
+              f"{res['build_s']} s, attempts {res['ours_attempts_s']}), "
+              f"crossing at iteration {res['ours_crossing_it']}, final gap "
+              f"{res['ours_final_gap']}; symv launches {sl}")
+        if not (res["ours_gap_reached"] and res["ours_crossing_it"] <= 48):
+            raise RuntimeError(f"bench {r}: no certified {GAP} gap within "
+                               "48 iterations")
+        if not sl["launches"] == sl["k_matvec_calls"] > 0:
+            raise RuntimeError(f"bench {r}: K-matvecs bypassed the kernel: "
+                               f"{sl}")
+        launches += sl["launches"]
+    if out["vs_baseline"] is not None or out["card"] != card:
+        raise RuntimeError(f"bench: vs_baseline {out['vs_baseline']}, card "
+                           f"{out['card']!r} (this card: {card!r})")
+    rel = abs(out["symv_ms"] - symv_ms) / symv_ms
+    print(f"bench: symv {out['symv_ms']} ms against {symv_ms:.4f} ms in "
+          f"phase kernel@K ({rel:.1%} apart)")
+    if not rel <= BENCH_SYMV_REL:
+        raise RuntimeError(f"bench: symv_ms {out['symv_ms']} is {rel:.1%} "
+                           f"from kernel@K's {symv_ms:.4f} ms")
+    return dict(out, seconds=seconds, launches=launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON")
@@ -1795,6 +1870,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     record["mesh"] = phase_mesh(card, record["main"], record["sparse"],
                                 record["sscn"])
+    record["bench"] = phase_bench(card, record["kernel_on_K"]["ms"])
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {record['seconds']:.1f} s")
     kk, mv, fig = record["kernel_on_K"], record["matvec"], record["figure2"]
@@ -1830,6 +1906,7 @@ def main(argv=None):
                      + record["cli_gram"]["launches"]
                      + record["news20"]["launches"]
                      + fig["news20-like"]["launches"]
+                     + record["bench"]["launches"]
                      + sum(h["symv_launches"]
                            for h in record["bf16_head"].values())),
         "max_abs_err": max(kk["max_abs_err"],
