@@ -13,7 +13,9 @@ Phases (each raises on failure, so the exit code is non-zero):
             count, n_pad = 20480): relative error below 1e-6, bitwise
             reproducible;
 4. main     the rcv1-like stand-in (20242 x 47236, 1.5M nnz, fp32): device
-            K build, then GramKrylov(m=10).run_fused(it_max=48, chunk=24,
+            K build (every panel through the bf16 split, split_panels
+            equal to the panel count, K bitwise symmetric), then
+            GramKrylov(m=10).run_fused(it_max=48, chunk=24,
             certify=True), with f* from an m=20 run of 192 iterations on the
             same K. Requires a certified exact gap <= 1e-8 within 48
             iterations, non-increasing exact chunk-boundary values, and every
@@ -112,8 +114,21 @@ Phases (each raises on failure, so the exit code is non-zero):
             rcv1's shape (957,861 nnz, 22 panels, the first holding 722,633;
             skewed by the JAX package's rule nblk * cap > 4 * nnz). K
             against host A A^T on 4,096 sampled rows (rel <= 1e-5), bitwise
-            symmetric, and one SYMV on it against fp64 and against its
-            plain version;
+            symmetric, every panel through the split, and one SYMV on it
+            against fp64 and against its plain version;
+16a. splitk the port of tools/measure_splitk.py
+            (krylov_crn_tpu_torch/tools/measure_splitk.py): on rcv1-like's
+            first 4,096 rows the split build and a direct fp32 SGEMM
+            against host fp64 (the split's K-matvec error <= 1e-6 and <= 4x
+            the SGEMM's); the panel step at (20480 x 2048), split against
+            SGEMM, in ms and TFLOP/s beside each one's bound; the card's
+            split P against its plain version (within 0.05 of the bound of
+            two fp32 sums of the same exact terms in any two orders, and
+            the same comparison of P rounded to bf16 beyond that); whole
+            builds of rcv1-like and news20-like, every panel through the
+            split.
+            One JSON line; the split product is a cuBLAS call, not a kernel
+            record;
 17. stress1m the sparse HVP of tools/measure_large_n.py (CSR products; no
             hand-written kernel on this path): at 100,000 x 100,000 with 10M
             entries against an fp64 scipy HVP of the arrays copied back (rel
@@ -127,7 +142,9 @@ Phases (each raises on failure, so the exit code is non-zero):
             correctness run's, not a scaling figure.
             (a) graft_entry.dryrun_multidevice(4, "cuda:0");
             (b) the rcv1-like Gram race at full width on a row-banded K
-            (fp32, m=10, chunk 24, it_max 48, certify): a certified 1e-8
+            (fp32, m=10, chunk 24, it_max 48, certify; each rank's whole K
+            build through the split, the bands gathered afterwards into a
+            bitwise-symmetric K): a certified 1e-8
             crossing against phase 4's f*, boundary values non-increasing,
             exact values within 1e-5 relative of phase 4's single-device
             race and at the same iterations (past 1e-5, which rounding
@@ -155,7 +172,8 @@ Phases (each raises on failure, so the exit code is non-zero):
             torch.mv roofline, SYMV and the HVP throughput. Its JSON line
             must hold every key of bench.py's; both races a certified 1e-8
             gap within 48 iterations, SYMV launches equal to the K-matvecs
-            on the card (> 0); vs_baseline null (no reference leg), the
+            on the card (> 0), every build panel through the split (the
+            bench raises on a K that is not bitwise symmetric); vs_baseline null (no reference leg), the
             card's line; its symv_ms within 10% of phase kernel@K's median
             at n_pad 20480.
 
@@ -422,6 +440,40 @@ def _certified_crossing(tag, trace, f_star, it_max):
     return its, gaps, cross, cross_t, bfs
 
 
+def _panel_count(A):
+    """The panels of A's device K build (empty columns compacted)."""
+    from krylov_crn_tpu_torch.ops.gram import _pack_flat_panels, pad_rows
+
+    return int(_pack_flat_panels(A, pad_rows(A.shape[0]), np.float32)[-1])
+
+
+def _split_build_ok(tag, A, K):
+    """After one fp32 device build of A's K (counts reset just before):
+    every panel's bf16 products ran on the card (``split_panels``, the
+    count of ``syrk_split_P``'s card branch, equal to the panel count)
+    and K is bitwise symmetric."""
+    from krylov_crn_tpu_torch.ops.gram import build_K_device, syrk_split_P
+
+    rec = dict(panels=build_K_device.panels,
+               split_panels=syrk_split_P.cuda_calls,
+               bitwise_symmetric=bool(K.equal(K.T)))
+    return _split_rec_ok(tag, rec, _panel_count(A))
+
+
+def _split_rec_ok(tag, rec, want):
+    """Raises unless ``rec`` (panels, split_panels, bitwise_symmetric)
+    shows ``want`` panels, all through the split, and a bitwise-symmetric
+    K."""
+    print(f"{tag}: K build panels {rec['panels']}, through the split "
+          f"{rec['split_panels']} (want {want}); bitwise symmetric "
+          f"{rec['bitwise_symmetric']}")
+    if not rec["split_panels"] == rec["panels"] == want:
+        raise RuntimeError(f"{tag}: fp32 K panels bypassed the split: {rec}")
+    if not rec["bitwise_symmetric"]:
+        raise RuntimeError(f"{tag}: K is not bitwise symmetric")
+    return dict(rec, want=want)
+
+
 def _gram_race(tag, name, dev):
     """The Gram-space main path on the stand-in ``name``: device K build,
     the m=10 race with certification, f* from an m=20 run on the same K,
@@ -430,7 +482,11 @@ def _gram_race(tag, name, dev):
 
     from krylov_crn_tpu_torch import GramKrylov, LogisticRegression
     from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
-    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    from krylov_crn_tpu_torch.ops.gram import (
+        build_K_device,
+        k_matvec,
+        syrk_split_P,
+    )
     from krylov_crn_tpu_torch.ops.symv import symv
 
     t0 = time.perf_counter()
@@ -444,12 +500,14 @@ def _gram_race(tag, name, dev):
 
     symv.launches = 0
     k_matvec.cuda_calls = 0
+    build_K_device.panels = syrk_split_P.cuda_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     alg.init_run(x0, 42)
     alg.initialized = True
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    k_build = _split_build_ok(tag, A, alg.gd.K)
     t0 = time.perf_counter()
     trace = alg.run_fused(x0, it_max=48, chunk=24, certify=True)
     race_s = time.perf_counter() - t0
@@ -478,7 +536,8 @@ def _gram_race(tag, name, dev):
     print(f"{tag}: boundary exact values {bfs}; rollbacks "
           f"{trace.metrics['rollback_its']}; chunks "
           f"{len(bfs) + len(trace.metrics['rollback_its'])}")
-    return alg, dict(gen_s=gen_s, build_s=build_s, race_s=race_s,
+    return alg, dict(gen_s=gen_s, build_s=build_s, k_build=k_build,
+                     race_s=race_s,
                      fstar_s=fstar_s, iterations=alg.it, crossing_it=cross,
                      crossing_t=cross_t, f_star=f_star,
                      final_gap=gaps[-1], best_gap=min(gaps),
@@ -1259,6 +1318,7 @@ def phase_skew(dev):
         build_K_device,
         _heavy_skew,
         pad_rows,
+        syrk_split_P,
     )
     from krylov_crn_tpu_torch.ops.symv import symv, symv_plain
 
@@ -1272,13 +1332,13 @@ def phase_skew(dev):
           f"{_heavy_skew(lens, A.nnz)}")
     if not _heavy_skew(lens, A.nnz):
         raise RuntimeError("skew: the problem is not a skewed one")
+    build_K_device.panels = syrk_split_P.cuda_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     K = build_K_device(A, n_pad, np.float32, dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    if not torch.equal(K, K.T):
-        raise RuntimeError("skew: K is not bitwise symmetric")
+    k_build = _split_build_ok("skew", A, K)
     rows = np.sort(np.random.default_rng(0).choice(n, 4096, replace=False))
     want = torch.from_numpy((A[rows].astype(np.float64)
                              @ A.astype(np.float64).T).toarray()).to(dev)
@@ -1298,10 +1358,61 @@ def phase_skew(dev):
         raise RuntimeError(f"skew: K rel err {rel:.3e} above {SKEW_K_TOL}")
     if not symv_rel < SYMV_TOL:
         raise RuntimeError(f"skew: symv rel err {symv_rel:.3e}")
-    return dict(build_s=build_s, rel_err=rel, symv_rel_err=symv_rel,
-                max_abs_err=err,
+    return dict(build_s=build_s, k_build=k_build, rel_err=rel,
+                symv_rel_err=symv_rel, max_abs_err=err,
                 nnz=int(A.nnz), panels=int(nblk),
                 longest_panel=int(lens.max()))
+
+
+SPLITK_MATVEC_TOL = 1e-6  # the split K's K-matvec error against fp64
+SPLITK_VS_SGEMM = 4.0  # ... and against the fp32 SGEMM's, same run
+
+
+def phase_splitk(card, panels):
+    """The port of tools/measure_splitk.py: the split build's accuracy on
+    rcv1-like's first 4,096 rows against host fp64 beside a direct fp32
+    SGEMM's (and two other contraction orders of the split, printed), the
+    panel step split against SGEMM, the card's split P
+    against its plain version, and the whole builds of rcv1-like and
+    news20-like. Gates: the split's K-matvec error <= 1e-6 and <= 4x the
+    SGEMM's; P within ORDER_GATE (0.05) of the any-order bound of two fp32
+    sums of the same exact terms (the sound product reads ~6e-3 of it),
+    and the control, P rounded to bf16, beyond it (the bound alone would
+    pass a bf16 output); every build panel through the split (``panels``:
+    each problem's count, from phases main and news20) and each K bitwise
+    symmetric."""
+    from krylov_crn_tpu_torch.tools.measure_splitk import measure
+
+    t0 = time.perf_counter()
+    out = measure()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"splitk ({out['seconds']:.1f} s): {json.dumps(out)}")
+    acc, pg, vp = out["accuracy"], out["panel_gemm"], out["split_vs_plain"]
+    for tag in acc:
+        g = pg[tag]
+        print(f"splitk {tag}: K-matvec rel err {acc[tag]['matvec_rel']:.3e}, "
+              f"elementwise {acc[tag]['elem_max_rel']:.3e}, dense panel "
+              f"{g['dense_elem_rel']:.3e}; panel step {g['ms']:.3f} ms "
+              f"({g['tflops']:.1f} TFLOP/s of B B^T), bound "
+              f"{g['bound_ms']:.3f} ms by {g['bound_by']} at "
+              f"{g['peak_tflops']} TFLOP/s ({card})")
+    print(f"splitk: card P against plain max |diff| {vp['max_abs_diff']:.3e}, "
+          f"{vp['max_rel_to_order_bound']:.3e} of the order bound (gate "
+          f"{vp['gate']}; P rounded to bf16 "
+          f"{vp['bf16_out_rel_to_order_bound']:.3e})")
+    for name, rec in out["build"].items():
+        print(f"splitk build {name}: {rec['build_s']:.3f} s")
+        _split_rec_ok(f"splitk {name}", rec, panels[name])
+    split, sgemm = acc["split"]["matvec_rel"], acc["sgemm_fp32"]["matvec_rel"]
+    if not (split <= SPLITK_MATVEC_TOL and split <= SPLITK_VS_SGEMM * sgemm):
+        raise RuntimeError(f"splitk: K-matvec rel err {split:.3e} (limit "
+                           f"{SPLITK_MATVEC_TOL}, and {SPLITK_VS_SGEMM} x "
+                           f"SGEMM's {sgemm:.3e})")
+    if not (vp["max_rel_to_order_bound"] <= vp["gate"]
+            < vp["bf16_out_rel_to_order_bound"]):
+        raise RuntimeError(f"splitk: card P off its plain version, or the "
+                           f"gate would pass a bf16 output: {vp}")
+    return out
 
 
 def _final_gaps_ok(tag, data):
@@ -1495,9 +1606,14 @@ def _mesh_rank(mesh):
         LogisticRegression,
     )
     from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
-    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    from krylov_crn_tpu_torch.ops.gram import (
+        build_K_device,
+        k_matvec,
+        syrk_split_P,
+    )
     from krylov_crn_tpu_torch.ops.matvec import matvec, matvec_plain
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows
     from krylov_crn_tpu_torch.parallel.sharded import build_sharded_dual
     from krylov_crn_tpu_torch.solvers.krylov_gram import gram_krylov_step
 
@@ -1510,12 +1626,15 @@ def _mesh_rank(mesh):
     loss = LogisticRegression(A, b, dtype=np.float32, device=dev)
     alg = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0,
                      mesh=mesh, label="gram-mesh")
+    build_K_device.panels = syrk_split_P.cuda_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     alg.init_run(x0, 42)
     alg.initialized = True
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    k_build = dict(panels=build_K_device.panels,
+                   split_panels=syrk_split_P.cuda_calls)
     matvec.launches = symv.launches = 0
     k_matvec.band_cuda_calls = k_matvec.cuda_calls = 0
     mesh.reset_counts()
@@ -1550,7 +1669,12 @@ def _mesh_rank(mesh):
         rel=_rel(y, ref), rel_plain=_rel(yp, ref),
         max_abs_err=float((y - yp).abs().max()),
         repeatable=bool(torch.equal(y, y2)))
-    del alg, K, loss
+    # the whole K from the bands (each rank built it whole and kept its
+    # rows), after the race's and the step's counts were read
+    K_all = all_gather_rows(mesh, K)
+    out["k_build"] = dict(k_build,
+                          bitwise_symmetric=bool(K_all.equal(K_all.T)))
+    del alg, K, K_all, loss
     torch.cuda.empty_cache()
 
     # (c) the d-space CSR path, row-sharded
@@ -1711,7 +1835,10 @@ def phase_mesh(card, main_rec, sparse_rec, sscn_rec):
               f"{bk['max_abs_err']:.3e}, repeatable {bk['repeatable']}")
         if not (bk["rel"] < MATVEC_TOL and bk["repeatable"]):
             raise RuntimeError(f"mesh: band kernel off on rank {r['rank']}")
+        _split_rec_ok(f"mesh rank {r['rank']}", r["k_build"],
+                      main_rec["k_build"]["want"])
     out.update(race=race, step_counts=r0["step_counts"], crossing_it=cross,
+               k_build=[r["k_build"] for r in ranks],
                rel_vs_single=rel, launch_s=launch_s,
                band_launches=sum(r["race"]["launches"] for r in ranks),
                band_calls=sum(r["race"]["band_calls"] for r in ranks),
@@ -1772,13 +1899,15 @@ BENCH_TIMEOUT = 600.0
 BENCH_SYMV_REL = 0.10  # its symv_ms against phase kernel@K's median
 
 
-def phase_bench(card, symv_ms):
+def phase_bench(card, symv_ms, panels):
     """The port's bench as a user runs it, in a process of its own:
     ``python -m krylov_crn_tpu_torch.bench``. Its last line must hold
     bench.py's keys; both races reach a certified 1e-8 gap within 48
-    iterations, every K-matvec through SYMV; no reference leg; the card's
-    line; its SYMV median within 10% of ``symv_ms`` (phase kernel@K's at
-    n_pad 20480)."""
+    iterations, every K-matvec through SYMV, every K build panel through
+    the split (``panels``: each race's panels per build, from phases main
+    and news20; the bench raises on a K that is not bitwise symmetric);
+    no reference leg; the card's line; its SYMV median within 10% of
+    ``symv_ms`` (phase kernel@K's at n_pad 20480)."""
     import os
     import subprocess
 
@@ -1812,6 +1941,10 @@ def phase_bench(card, symv_ms):
         if not sl["launches"] == sl["k_matvec_calls"] > 0:
             raise RuntimeError(f"bench {r}: K-matvecs bypassed the kernel: "
                                f"{sl}")
+        # the bench raises on a built K that is not bitwise symmetric
+        _split_rec_ok(f"bench {r}", dict(res["k_build"],
+                                         bitwise_symmetric=True),
+                      BENCH_REPS * panels[r])
         launches += sl["launches"]
     if out["vs_baseline"] is not None or out["card"] != card:
         raise RuntimeError(f"bench: vs_baseline {out['vs_baseline']}, card "
@@ -1866,11 +1999,18 @@ def main(argv=None):
     torch.cuda.empty_cache()
     record["skew"] = phase_skew(dev)
     torch.cuda.empty_cache()
+    record["splitk"] = phase_splitk(
+        card, {"rcv1-like": record["main"]["k_build"]["want"],
+               "news20-like": record["news20"]["k_build"]["want"]})
+    torch.cuda.empty_cache()
     record["stress1m"] = phase_stress1m(dev, card)
     torch.cuda.empty_cache()
     record["mesh"] = phase_mesh(card, record["main"], record["sparse"],
                                 record["sscn"])
-    record["bench"] = phase_bench(card, record["kernel_on_K"]["ms"])
+    record["bench"] = phase_bench(
+        card, record["kernel_on_K"]["ms"],
+        {"rcv1": record["main"]["k_build"]["want"],
+         "news20": record["news20"]["k_build"]["want"]})
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {record['seconds']:.1f} s")
     kk, mv, fig = record["kernel_on_K"], record["matvec"], record["figure2"]

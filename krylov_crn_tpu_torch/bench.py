@@ -32,8 +32,8 @@ The upstream reference (``bench_reference``) is looked for in a
 returns None and ``vs_baseline`` is null.
 
 Prints ONE JSON line with ``bench.py``'s keys, plus ``card`` (the card's
-name and power limit), ``hvp_format`` and, per race, ``ours_crossing_it``
-and ``symv_launches``. Needs a card: without one it raises.
+name and power limit), ``hvp_format`` and, per race, ``ours_crossing_it``,
+``symv_launches`` and ``k_build``. Needs a card: without one it raises.
 """
 
 from __future__ import annotations
@@ -147,6 +147,10 @@ def bench_ours(A, b, x0, device=None):
     alg.initialized = True
     _sync(dev)
     build_s = time.perf_counter() - t0
+    # SYMV reads the upper triangle only: a K that is not bitwise
+    # symmetric would race on another matrix (checked outside the timing)
+    if not torch.equal(alg.gd.K, alg.gd.K.T):
+        raise RuntimeError("bench: the built K is not bitwise symmetric")
 
     # certify=True: every within-chunk iterate is exact-evaluated on the
     # host after the run, so the crossing is certified at its
@@ -214,16 +218,24 @@ def race(name, reps=2, device=None):
     lower bound on its time-to-gap); f* is the min of both sides' bests.
 
     Adds ``ours_crossing_it`` (the scored attempt's certified crossing
-    iteration, a count that compares across hardware) and
-    ``symv_launches`` (the SYMV kernel's launches over all attempts beside
-    the K-matvecs made on the card; they must be equal)."""
-    from krylov_crn_tpu_torch.ops.gram import k_matvec
+    iteration, a count that compares across hardware), ``symv_launches``
+    (the SYMV kernel's launches over all attempts beside the K-matvecs
+    made on the card; they must be equal) and ``k_build`` (the K builds'
+    panels over all attempts beside those whose bf16 split products ran
+    on the card, equal for fp32; each built K is bitwise symmetric or the
+    attempt raises)."""
+    from krylov_crn_tpu_torch.ops.gram import (
+        build_K_device,
+        k_matvec,
+        syrk_split_P,
+    )
     from krylov_crn_tpu_torch.ops.symv import symv
 
     dev = resolve_device(device)
     A, b, x0 = _problem(name)
     _load_kernels(dev)
     symv.launches = k_matvec.cuda_calls = 0
+    build_K_device.panels = syrk_split_P.cuda_calls = 0
     ours_attempts = []
     for _ in range(reps):
         ours_attempts.append(bench_ours(A, b, x0, device=dev))
@@ -268,6 +280,8 @@ def race(name, reps=2, device=None):
         "ours_final_gap": fs and min(fs) - f_star,
         "ours_crossing_it": crossings[best][1],
         "symv_launches": {"launches": launches, "k_matvec_calls": calls},
+        "k_build": {"panels": build_K_device.panels,
+                    "split_panels": syrk_split_P.cuda_calls},
     }
     if ref_attempts:
         ref_times = []

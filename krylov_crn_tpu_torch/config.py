@@ -5,7 +5,8 @@ fp32 (the Gram solver chases 1e-8 suboptimality gaps, and a silently
 reduced-precision GEMM in the line search or the K build stalls the
 gap — PERF.md "The fp32 matmul precision cliff"). On an NVIDIA card the
 reduced mode is TF32, which keeps about three decimal digits, so both
-cuBLAS and cuDNN TF32 switches are turned off at import.
+cuBLAS and cuDNN TF32 switches are turned off at import, and so are
+cuBLAS's reduced-precision reductions in bf16 and fp16 products.
 
 The accumulation policy is explicit instead of a global x64 switch:
 fp32 storage accumulates in fp32 compensated (two-float) pairs, the
@@ -20,8 +21,12 @@ __all__ = ["pin_fp32_matmul_precision", "accum_dtype", "resolve_device"]
 
 
 def pin_fp32_matmul_precision() -> None:
-    """Full-fp32 matmuls everywhere (no TF32 in cuBLAS or cuDNN)."""
+    """Full-fp32 matmuls everywhere (no TF32 in cuBLAS or cuDNN), and no
+    reduced-precision reductions inside a bf16 or fp16 product: the split
+    K build (``ops/gram.syrk_split_P``) sums its bf16 products in fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

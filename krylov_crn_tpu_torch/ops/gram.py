@@ -13,8 +13,11 @@ operation over the dense n x n Gram matrix K = A A^T:
     <v, v'>  = closed O(n) form over the carried images u = A v
 
 The feature dimension d appears only in the K build and when an explicit
-iterate is materialized. Per Krylov-CRN iteration the solver runs m + 1
-K-matvecs, each through the SYMV kernel on a card (ops/symv.py).
+iterate is materialized. An fp32 K is built as the JAX package builds it,
+from three bf16 slices of each column panel on the tensor cores
+(``build_K_device``, ``syrk_split_P``), bitwise symmetric panel by panel.
+Per Krylov-CRN iteration the solver runs m + 1 K-matvecs, each through
+the SYMV kernel on a card (ops/symv.py).
 
 Under a mesh of D ranks (``build_gram(mesh=)``) K is **row-banded**: rank
 r keeps rows [r n_pad/D, (r+1) n_pad/D) and everything else (Ax0, b, mask,
@@ -56,11 +59,15 @@ from krylov_crn_tpu_torch.ops.matvec import matvec
 from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows
 
-__all__ = ["GramData", "build_gram", "build_K_device", "Rep", "rep_dot",
+__all__ = ["GramData", "build_gram", "build_K_device", "syrk_split_pieces",
+           "syrk_split_P", "syrk_split_P_plain", "Rep", "rep_dot",
            "rep_scale", "rep_sub", "rep_axpy", "k_matvec", "gram_lanczos",
            "GramLanczosResult", "pad_rows"]
 
 ROW_ALIGN = 256  # the JAX package's CPU padding; a multiple of symv.BLOCK
+# columns of the split's big b1 b1^T block per tensor-core sum
+# (syrk_split_P): each run starts from zero and is added in fp32
+SPLIT_CHUNK = 512
 
 
 def _round_up(x: int, m: int) -> int:
@@ -157,26 +164,165 @@ def _pack_flat_panels(A, n_pad, dtype, col_block=2048):
     return Rf, CE, Vf, starts, lens, cb, nblk
 
 
-def build_K_device(A, n_pad: int, dtype, device):
-    """K = A A^T built on ``device`` from column panels.
+def syrk_split_pieces(B):
+    """The three bf16 slices of an fp32 panel, B = b1 + b2 + b3 to about
+    2^-26 elementwise: b1 is B rounded to nearest even (the JAX package's
+    ``reduce_precision(B, 8, 7)``), b2 the rounded remainder, b3 what is
+    left. Both subtractions are exact (Sterbenz). Eager only: a compiler
+    that folds the f32 -> bf16 -> f32 round trip away (XLA's
+    excess-precision pass does, ``krylov_crn_tpu/ops/gram.py:166-171``)
+    zeroes the residuals and leaves one bf16 pass (elementwise error
+    ~3.8e-3), so this never goes under ``torch.compile``."""
+    b1 = B.to(torch.bfloat16)
+    r1 = B - b1.float()
+    b2 = r1.to(torch.bfloat16)
+    b3 = (r1 - b2.float()).to(torch.bfloat16)
+    return b1, b2, b3
+
+
+def _split_operands(B, X=None, Y=None):
+    """X = [b1/2 | b2/2 | b1 | b1] and Y = [b1 | b2 | b2 | b3], each
+    (n x 4cb) bf16, written into ``X`` and ``Y`` when given. Halving is
+    exact (an exponent shift)."""
+    n, cb = B.shape
+    if X is None:
+        X = torch.empty((n, 4 * cb), dtype=torch.bfloat16, device=B.device)
+        Y = torch.empty_like(X)
+    b1, b2, b3 = syrk_split_pieces(B)
+    X3, Y3 = X.view(n, 4, cb), Y.view(n, 4, cb)
+    torch.mul(b1, 0.5, out=X3[:, 0])
+    torch.mul(b2, 0.5, out=X3[:, 1])
+    X3[:, 2] = b1
+    X3[:, 3] = b1
+    Y3[:, 0] = b1
+    Y3[:, 1] = b2
+    Y3[:, 2] = b2
+    Y3[:, 3] = b3
+    return X, Y
+
+
+def syrk_split_P(B, X=None, Y=None, P=None):
+    """Asymmetric half-Gram P with P + P^T = B B^T to fp32 accuracy, for
+    an fp32 panel B: the counterpart of ``_syrk_split_P``
+    (``krylov_crn_tpu/ops/gram.py:141-184``). Expanding B B^T over the
+    slices and dropping (2,3), (3,3) (~2^-27, below fp32 resolution):
+
+        P = 0.5 b1 b1^T + 0.5 b2 b2^T + b1 b2^T + b1 b3^T = X @ Y^T
+
+    on the tensor cores, bf16 in, fp32 accumulation and fp32 out
+    (``aten::mm.dtype_out``, cuBLAS), four times B B^T's flops at the bf16
+    rate. Every product of two slices is exact in fp32, so P is an fp32
+    sum of exact terms, as in the JAX package.
+
+    The tensor cores' fp32 accumulation rounds toward zero at the ulp of
+    the running sum, so the order of the contraction matters. The three
+    small blocks (0.5 b2 b2^T + b1 b2^T + b1 b3^T, depth 3cb) go first,
+    into P; the big 0.5 b1 b1^T block follows in runs of ``SPLIT_CHUNK``
+    columns, each summed on the tensor cores from zero and added onto P in
+    the epilogue (``addmm``, beta 1, fp32 rounded to nearest). In one call
+    of depth 4cb, the JAX package's single ``dot_general``, every term of
+    the small blocks lands on a sum that already holds the big block and
+    drops up to one ulp of it, all the same way: on the first 4,096 rows
+    of rcv1-like a K-matvec error of 7.4e-7 against fp64 (fp32 SGEMM
+    1.3e-7). Small blocks first and the big block whole: 8.0e-8, but K's
+    entries still lean toward zero and GramCRN's fp32 run on rcv1-like
+    stalled at a 2e-6 gap; with the big block in runs of 512 columns K is
+    at least as accurate as an fp32 SGEMM's on every panel measured, and
+    GramCRN crosses where it did on the SGEMM's K (PERF.md, "K build";
+    ``krylov_crn_tpu_torch/tools/measure_splitk.py``).
+
+    ``X``, ``Y`` (n x 4cb bf16) and ``P`` (n x n fp32) are reused when
+    given. A CPU tensor takes the plain version; a CUDA one takes the
+    bf16 products or raises: there is no fp32 SGEMM or bf16-output
+    fallback. ``syrk_split_P.cuda_calls`` counts the panels whose bf16
+    products were launched on the card."""
+    if not B.is_cuda:
+        return syrk_split_P_plain(B)
+    if not all("dtype_out" in op.overloads()
+               for op in (torch.ops.aten.mm, torch.ops.aten.addmm)):
+        raise RuntimeError(
+            f"syrk_split_P: torch {torch.__version__} lacks aten::mm or "
+            "aten::addmm .dtype_out, the bf16 x bf16 -> fp32 products of "
+            "the split K build")
+    X, Y = _split_operands(B, X, Y)
+    n, cb = B.shape
+    if P is None:
+        P = torch.empty((n, n), dtype=torch.float32, device=B.device)
+    torch.mm(X[:, cb:], Y[:, cb:].T, out_dtype=torch.float32, out=P)
+    for a in range(0, cb, SPLIT_CHUNK):
+        c = slice(a, min(a + SPLIT_CHUNK, cb))
+        torch.addmm(P, X[:, c], Y[:, c].T, out_dtype=torch.float32, out=P)
+    syrk_split_P.cuda_calls += 1
+    return P
+
+
+syrk_split_P.cuda_calls = 0
+
+
+def syrk_split_P_plain(B):
+    """The plain version of ``syrk_split_P``: the same X and Y upcast to
+    fp32 and multiplied in fp32. The terms are the same exact products;
+    only the order of the fp32 sums differs."""
+    X, Y = _split_operands(B)
+    return X.float() @ Y.float().T
+
+
+def _use_split(dtype) -> bool:
+    """fp32 panels take the split, as the JAX package's ``_use_split``
+    routes fp32 at HIGHEST, the precision of its every device build; fp64
+    panels take the plain product."""
+    return dtype == torch.float32
+
+
+def _panel_accum(K, B, bufs=None):
+    """K += B B^T in place, the counterpart of ``_panel_accum``
+    (``krylov_crn_tpu/ops/gram.py:199-217``). fp32: K += (P + P^T) with
+    the pair summed first: P + P^T is bitwise symmetric (fp addition
+    commutes), so K stays bitwise symmetric after every panel (``K + P +
+    P^T`` in two steps would not, nor would ``P.add_(P.T)``, which reads
+    entries it has overwritten). ``bufs`` = (X, Y, P, S): the split's
+    operands, P and the pair sum, reused from panel to panel. fp64:
+    ``addmm_``, symmetrized by the caller."""
+    if _use_split(B.dtype):
+        X, Y, P, S = bufs or (None,) * 4
+        P = syrk_split_P(B, X, Y, P)
+        K.add_(P + P.T if S is None else torch.add(P, P.T, out=S))
+    else:
+        K.addmm_(B, B.T)
+
+
+def build_K_device(A, n_pad: int, dtype, device, col_block: int = 2048):
+    """K = A A^T built on ``device`` from ``col_block``-wide column panels.
 
     Each panel's nnz are scattered into a dense (n_pad x cb) buffer B
     (CSR holds no duplicates, so a plain ``index_put_`` without atomics),
-    and K accumulates B B^T through ``addmm_`` at full fp32 (config.py
-    turns TF32 off). Every panel is sliced at its own length, so one
+    and K accumulates B B^T through ``_panel_accum``: for fp32 the JAX
+    package's split (three bf16 slices, bf16 products with fp32 output on
+    the tensor cores, ``syrk_split_P``), which keeps K bitwise
+    symmetric panel by panel; for fp64 ``addmm_``, then one
+    symmetrization at the end, 0.5 * (K + K^T), bitwise symmetric because
+    fp addition commutes and halving is exact (the SYMV kernel reads only
+    the upper triangle). Every panel is sliced at its own length, so one
     panel holding most of the nnz (heavy column skew) costs no more than
-    its entries. cuBLAS does not promise that B B^T is bitwise
-    symmetric, and the SYMV kernel reads only the upper triangle, so the
-    result is symmetrized once at the end: 0.5 * (K + K^T) is bitwise
-    symmetric because fp addition commutes and halving is exact."""
+    its entries. ``build_K_device.panels`` counts the panels built;
+    beside ``syrk_split_P.cuda_calls`` it shows that every fp32 panel on
+    the card went through the bf16 products. The split's buffers, allocated
+    once per build: X and Y (n_pad x 4cb bf16 each), P and the pair sum
+    (n_pad^2 fp32 each), 3.9 GB beside K at n_pad 20224."""
     Rf, CE, Vf, starts, lens, cb, nblk = _pack_flat_panels(
-        A, n_pad, np.dtype(dtype))
+        A, n_pad, np.dtype(dtype), col_block)
     tdt = as_torch_dtype(dtype)
     rows = torch.from_numpy(Rf.astype(np.int64)).to(device)
     vals = torch.from_numpy(Vf).to(device)
     col_ends = torch.from_numpy(CE.astype(np.int64)).to(device)
     K = torch.zeros((n_pad, n_pad), dtype=tdt, device=device)
     B = torch.empty((n_pad, cb), dtype=tdt, device=device)
+    split = _use_split(tdt)
+    bufs = None
+    if split and K.is_cuda:
+        X = torch.empty((n_pad, 4 * cb), dtype=torch.bfloat16, device=device)
+        bufs = (X, torch.empty_like(X), torch.empty_like(K),
+                torch.empty_like(K))
     for i in range(nblk):
         s, ln = int(starts[i]), int(lens[i])
         # within-panel column of entry p = #{column ends <= s + p}; ends of
@@ -185,9 +331,15 @@ def build_K_device(A, n_pad: int, dtype, device):
         c = torch.cumsum(torch.bincount(ce, minlength=ln + 1)[:ln], 0)
         B.zero_()
         B.index_put_((rows[s:s + ln], c), vals[s:s + ln])
-        K.addmm_(B, B.T)
+        _panel_accum(K, B, bufs)
+        build_K_device.panels += 1
+    if split:
+        return K
     K = K + K.T
     return K.mul_(0.5)
+
+
+build_K_device.panels = 0
 
 
 def _host_K(A, x0, dtype, cache_dir):

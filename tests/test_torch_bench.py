@@ -29,7 +29,7 @@ FSTAR_IT = 96  # both sides alike, to keep the JAX run short
 # (certified gaps there ~4e-12), reached along trajectories whose fp32
 # rounding differs: 4.2e-10 relative apart (7.6e-11 absolute on f* = 0.18)
 F_BEST_RTOL = 1e-9
-ADDED_KEYS = {"ours_crossing_it", "symv_launches"}
+ADDED_KEYS = {"ours_crossing_it", "symv_launches", "k_build"}
 
 # tests/test_bench_scoring.py's cases: ours as (build_s, ts, fs, f_best),
 # the reference as (ts, fs, f_best), and the crossing iteration of ours'
@@ -77,8 +77,9 @@ def test_race_scoring_equals_bench(monkeypatch, case):
     for key, value in want.items():
         assert got[key] == value, key
     assert got["ours_crossing_it"] == crossing_it
-    # no K-matvec ran: no launch, and none on the card
+    # no K-matvec ran: no launch, and none on the card; no K was built
     assert got["symv_launches"] == {"launches": 0, "k_matvec_calls": 0}
+    assert got["k_build"] == {"panels": 0, "split_panels": 0}
 
 
 def test_problem_is_bench_problem():
@@ -243,6 +244,7 @@ def test_race_on_card(cuda_device, monkeypatch):
     out = tb.race(SMALL, reps=2, device=cuda_device)
     launches = out["symv_launches"]
     assert launches["launches"] == launches["k_matvec_calls"] > 0
+    assert out["k_build"]["split_panels"] == out["k_build"]["panels"] == 2
     assert out["ours_gap_reached"] and out["ours_crossing_it"] <= 48
     assert len(out["ours_attempts_s"]) == 2
 
