@@ -6,8 +6,9 @@
 Phases (each raises on failure, so the exit code is non-zero):
 
 1. device   require CUDA; print the card's name and power limit;
-2. build    compile csrc/symv.cu and csrc/matvec.cu with nvcc, one process
-            each, started together (into krylov_crn_tpu_torch/_build);
+2. build    compile csrc/symv.cu, csrc/matvec.cu and csrc/subproblem.cu
+            (the last with --fmad=false) with nvcc, one process each,
+            started together (into krylov_crn_tpu_torch/_build);
 3. kernel   SYMV kernel against its plain PyTorch version and an fp64
             product on bitwise-symmetric random K (one tile, an odd tile
             count, n_pad = 20480): relative error below 1e-6, bitwise
@@ -18,8 +19,21 @@ Phases (each raises on failure, so the exit code is non-zero):
             GramKrylov(m=10).run_fused(it_max=48, chunk=24,
             certify=True), with f* from an m=20 run of 192 iterations on the
             same K. Requires a certified exact gap <= 1e-8 within 48
-            iterations, non-increasing exact chunk-boundary values, and every
-            K-matvec on the card launched through the SYMV kernel;
+            iterations, non-increasing exact chunk-boundary values, every
+            K-matvec on the card launched through the SYMV kernel (a
+            replayed step counts the launches its capture made), and the
+            race's steps replayed from captured CUDA graphs (graph_replays,
+            printed by every race phase, at least its iterations);
+4a. fused   on phase 4's K, from the race's initial state: 48 eager steps,
+            each one's subproblem kernel (csrc/subproblem.cu) against its
+            numpy emulation bit for bit and against its plain version
+            (cuSOLVER's eigh and the Newton loop) within the CPU tests'
+            tolerances; the kernel, the plain version and torch.linalg.eigh
+            timed with CUDA events; one 24-step chunk eager against its
+            graph replays bit for bit, the replays inside
+            torch.cuda.set_sync_debug_mode("error"); wall, device time,
+            busy share, host launches and SYMV kernels per step, eager and
+            replayed (torch.profiler; SYMV 11 times per replayed step);
 5. kernel@K the kernel against plain and fp64 on the built K (they differ
             by less than 1e-6 of the fp64 product's norm), and both timed
             with CUDA events (median of 25 chained calls); repeated on
@@ -152,7 +166,9 @@ Phases (each raises on failure, so the exit code is non-zero):
             instead: ROADMAP C.4); m + 1 all-gathers per step
             (budget m + 2) and no all-reduce; every band product went
             through the matvec kernel (launches == band calls == all-gathers
-            on every rank); each rank's band kernel against its plain
+            on every rank); no graph replay (gloo's collectives cannot be
+            captured: the sharded step runs eagerly, still through the
+            subproblem kernel); each rank's band kernel against its plain
             version (K_band @ q) and an fp64 product;
             (c) the rcv1-like d-space CSR path row-sharded: CubicKrylov m=10
             x 10 and SSCN m=500 x 20 against phases 9 and 12's single-card
@@ -179,7 +195,10 @@ Phases (each raises on failure, so the exit code is non-zero):
 
 The kernel records count the launches of every phase that drives a
 solver (each phase resets the counts just before and reads them just
-after; phase bench's process counts its own, per race). The matvec
+after; phase bench's process counts its own, per race). The subproblem
+kernel's record, ``tridiag_secular``, counts the Gram races of phases
+main, bf16_head, cli_gram, news20 and figure2 (one launch per step: a
+capture's eager warm-up step, or a replay). The matvec
 kernel has a record for each shape a path launches it at, its launches
 there beside its times at that shape: w8a-like's A
 (49749, 300) and A^T (300, 49749) on the d-space paths (counted by shape,
@@ -357,16 +376,18 @@ def phase_device():
 def phase_build():
     from krylov_crn_tpu_torch.ops import _kernels
     from krylov_crn_tpu_torch.ops import matvec as matvec_mod
+    from krylov_crn_tpu_torch.ops import subproblem as subproblem_mod
     from krylov_crn_tpu_torch.ops import symv as symv_mod
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        for f in [pool.submit(symv_mod._library),
-                  pool.submit(matvec_mod._library)]:
+    libs = (symv_mod, matvec_mod, subproblem_mod)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+        for f in [pool.submit(mod._library) for mod in libs]:
             f.result()
     s = time.perf_counter() - t0
     nv = {k: round(v, 3) for k, v in _kernels.last_build_seconds.items()}
-    print(f"build: symv.cu and matvec.cu in {s:.3f} s (nvcc {nv})")
+    print(f"build: symv.cu, matvec.cu and subproblem.cu in {s:.3f} s (nvcc "
+          f"{nv}; subproblem.cu with {_kernels.KERNEL_FLAGS['subproblem']})")
     for name, log in _kernels.last_build_log.items():
         for fn, regs in _ptxas_registers(log):
             print(f"build: {name}.cu {fn}: {regs}")
@@ -498,8 +519,7 @@ def _gram_race(tag, name, dev):
     alg = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10, tolerance=0,
                      device=dev, label="gram")
 
-    symv.launches = 0
-    k_matvec.cuda_calls = 0
+    _reset_counts()
     build_K_device.panels = syrk_split_P.cuda_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -511,23 +531,35 @@ def _gram_race(tag, name, dev):
     t0 = time.perf_counter()
     trace = alg.run_fused(x0, it_max=48, chunk=24, certify=True)
     race_s = time.perf_counter() - t0
-    race_launches = symv.launches
+    race = _counts()
+    race_launches = race["symv"]
     t0 = time.perf_counter()
     ref = GramKrylov(loss=loss, reg_coef=1e-3, subspace_dim=20, tolerance=0,
                      device=dev, label="gram-fstar", gram_data=alg.gd)
     ref.run_fused(x0, it_max=192, chunk=32)
     fstar_s = time.perf_counter() - t0
     launches, calls = symv.launches, k_matvec.cuda_calls
+    cnt = _counts()
+    del ref
 
     f_star = float(loss.f_opt)
     fs = [float(v) for v in trace.metrics["exact_fs"]]
     print(f"{tag}: K build {build_s:.3f} s (n_pad {alg.gd.n_padded}), race "
           f"{race_s:.3f} s for {alg.it} iterations, f* run {fstar_s:.3f} s")
     print(f"{tag}: symv launches {launches} (race {race_launches}), "
-          f"k_matvec calls on the card {calls}")
+          f"k_matvec calls on the card {calls}; graph replays "
+          f"{cnt['graph_replays']} (race {race['graph_replays']}, captures "
+          f"{cnt['graph_captures']}); subproblem kernel launches "
+          f"{cnt['subproblem']}")
     if not (launches == calls and race_launches > 0):
         raise RuntimeError(f"{tag}: K-matvecs bypassed the kernel: "
                            f"{launches} launches vs {calls} calls")
+    if not (race["graph_replays"] >= alg.it > 0 and cnt["subproblem"]
+            >= cnt["graph_replays"]):
+        raise RuntimeError(f"{tag}: the race did not replay its steps: "
+                           f"{race['graph_replays']} replays for {alg.it} "
+                           f"iterations, {cnt['subproblem']} subproblem "
+                           "launches")
     its, gaps, cross, cross_t, bfs = _certified_crossing(tag, trace, f_star,
                                                          48)
     print(f"{tag}: f* {f_star:.17g}; crossing at iteration {cross} "
@@ -543,11 +575,295 @@ def _gram_race(tag, name, dev):
                      final_gap=gaps[-1], best_gap=min(gaps),
                      exact_its=its, exact_fs=fs, boundary_fs=bfs,
                      launches=launches,
-                     race_launches=race_launches, kmatvec_calls=calls)
+                     race_launches=race_launches, kmatvec_calls=calls,
+                     graph_replays=cnt["graph_replays"],
+                     race_graph_replays=race["graph_replays"],
+                     graph_captures=cnt["graph_captures"],
+                     subproblem_launches=cnt["subproblem"])
 
 
 def phase_main(dev):
     return _gram_race("main", "rcv1-like", dev)
+
+
+FUSED_STEPS = 48  # the race's iterations
+FUSED_CHUNK = 24  # the race's chunk
+# the CPU tests' tolerances (tests/test_torch_subproblem_kernel.py) for the
+# kernel against its plain version: theta within 16 eps ||T||_2, lambda
+# within 1e-5 relative or the Newton's absolute stop, Newton counts within
+# 8 unless one side runs to it_max, the step S within lambda's tolerance
+# plus lambda's and theta's absolute errors over min |theta + lambda|
+SUB_THETA_EPS = 16
+SUB_LAM_REL = 1e-5
+SUB_ITS_GAP = 8
+
+
+def _same_bits(a, b):
+    """a and b hold the same bits (NaN where the other is NaN, whatever
+    its payload)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind != "f":
+        return bool(np.array_equal(a, b))
+    na, nb = np.isnan(a), np.isnan(b)
+    u = {4: np.uint32, 8: np.uint64}[a.itemsize]
+    return bool(np.array_equal(na, nb)
+                and np.array_equal(a[~na].view(u), b[~nb].view(u)))
+
+
+def _subproblem_close(host, got, want, xtol, it_max):
+    """The kernel's (theta, Q, lams, its) ``got`` against the plain
+    version's ``want`` on the inputs ``host`` (numpy), at the CPU tests'
+    tolerances; returns the worst (theta in eps ||T||, lambda relative,
+    Newton count gap, S relative) or raises."""
+    alphas, betas, g_norm = host[0], host[1], float(host[2])
+    dt = alphas.dtype
+    eps = float(np.finfo(dt).eps)
+    T = (np.diag(alphas.astype(np.float64))
+         + np.diag(betas.astype(np.float64), 1)
+         + np.diag(betas.astype(np.float64), -1))
+    th_bound = SUB_THETA_EPS * eps * max(np.linalg.norm(T, 2), 1e-300)
+    theta, Q, lam, its = (np.asarray(v) for v in got)
+    theta_p, Q_p, lam_p, its_p = (np.asarray(v) for v in want)
+    th_err = float(np.max(np.abs(theta.astype(np.float64) - theta_p)))
+    lam_tol = SUB_LAM_REL if dt == np.float32 else 1e-10
+    atol = xtol if dt == np.float32 else 0.0
+    fin = np.isfinite(lam) & np.isfinite(lam_p)
+    pole = -float(theta_p[0])
+    for side in (lam, lam_p):  # a Newton iterate that lands on the pole
+        off = ~fin & np.isfinite(side)
+        if not np.all(np.abs(side[off] - pole) <= lam_tol * abs(pole)):
+            raise RuntimeError(f"subproblem: lambda {side[off]} is NaN on "
+                               f"one side and off the pole {pole}")
+    lam_err = np.abs(lam[fin].astype(np.float64) - lam_p[fin])
+    lam_ok = lam_err <= lam_tol * np.abs(lam_p[fin]) + atol
+    gap = np.abs(its - its_p)[fin]
+    capped = ((its == it_max) | (its_p == it_max))[fin]
+
+    def step(th, q, lm):
+        th, q, lm = (np.asarray(v, np.float64) for v in (th, q, lm))
+        c = g_norm * q[0, :]
+        den = th[None, :] + lm[:, None]
+        u = np.where(c != 0, -c / np.where(c != 0, den, 1.0), 0.0)
+        return u @ q.T
+
+    S, S_p = step(theta, Q, lam[fin]), step(theta_p, Q_p, lam_p[fin])
+    near = np.min(np.abs(theta_p[None, :].astype(np.float64)
+                         + lam_p[fin][:, None]), axis=1, initial=np.inf)
+    s_tol = lam_tol + (lam_tol * np.abs(lam_p[fin]) + atol + th_bound) / near
+    s_err = np.max(np.abs(S - S_p), axis=1, initial=0.0)
+    s_scale = max(float(np.abs(S_p).max(initial=0.0)), 1e-300)
+    worst = dict(theta=th_err / (eps * max(np.linalg.norm(T, 2), 1e-300)),
+                 lam=float(np.max(lam_err / np.maximum(np.abs(lam_p[fin]),
+                                                      1e-300), initial=0.0)),
+                 its=int(np.max(gap[~capped], initial=0)),
+                 step=float(np.max(s_err / s_scale, initial=0.0)),
+                 abs_err=max(th_err, float(np.max(lam_err, initial=0.0))))
+    if not (th_err <= th_bound and lam_ok.all()
+            and (gap[~capped] <= SUB_ITS_GAP).all()
+            and (s_err <= s_tol * s_scale).all()):
+        raise RuntimeError(f"subproblem: kernel against plain beyond the "
+                           f"tolerances: {worst}")
+    return worst
+
+
+def _profile_steps(fn, steps):
+    """Per step of ``fn()`` (``steps`` steps) under torch.profiler: device
+    ms (every kernel, copy and fill), device kernels, SYMV kernels and
+    host launch calls (kernels, graphs, copies, fills)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_us = kernels = symv_k = launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:  # a kernel, copy or fill
+            device_us += getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0))
+            kernels += ev.count
+            if "symv_upper_tiles" in ev.key:
+                symv_k += ev.count
+        elif ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaGraphLaunch", "cudaMemcpyAsync",
+                                "cudaMemsetAsync")):
+            launches += ev.count
+    return dict(device_ms=device_us / 1e3 / steps, kernels=kernels / steps,
+                symv=symv_k / steps, launches=launches / steps)
+
+
+def phase_fused(dev, alg):
+    """The Gram step without host round trips, on phase main's K (see the
+    module's docstring, phase 4a)."""
+    import torch
+
+    from krylov_crn_tpu_torch import GramKrylov
+    from krylov_crn_tpu_torch.ops import subproblem as sp
+    from krylov_crn_tpu_torch.solvers import krylov_gram as kg
+    from krylov_crn_tpu_torch.utils.profiling import (
+        alternating_ms,
+        device_time_per_call,
+    )
+
+    fresh = GramKrylov(loss=alg.loss, reg_coef=1e-3, subspace_dim=10,
+                       tolerance=0, device=dev, label="gram-fused",
+                       gram_data=alg.gd)
+    fresh.init_run(alg._x0_host, 42)
+    gd, st0, kw = fresh.gd, fresh.state, fresh._step_kwargs()
+    xtol, it_max = kw["solver_eps"], kw["solver_it_max"]
+
+    # ---- the kernel on the 48 eager steps' inputs ----
+    seen = []
+    launch = kg.tridiag_secular
+
+    def record(*args, **k):
+        out = launch(*args, **k)
+        seen.append((tuple(a.clone() for a in args),
+                     tuple(o.clone() for o in out)))
+        return out
+
+    kg.tridiag_secular = record
+    try:
+        kg.gram_krylov_multistep(gd, st0, chunk=FUSED_STEPS, use_lr=False,
+                                 **kw)
+    finally:
+        kg.tridiag_secular = launch
+    torch.cuda.synchronize()
+    worst = dict(theta=0.0, lam=0.0, its=0, step=0.0, abs_err=0.0)
+    rotations = newton_its = 0
+    for i, (args, out) in enumerate(seen):
+        host = [a.cpu().numpy() for a in args]
+        got = [o.cpu().numpy() for o in out]
+        emu = sp.tridiag_secular_emulated(*host, xtol=xtol, it_max=it_max)
+        rotations += sp.tridiag_secular_emulated.rotations
+        newton_its += int(got[3].sum())
+        for name, g, e in zip(("theta", "Q", "lams", "its"), got, emu):
+            if not _same_bits(g, e):
+                raise RuntimeError(f"fused: step {i + 1}: the kernel's "
+                                   f"{name} differs from its emulation")
+        plain = [o.cpu().numpy() for o in sp.tridiag_secular_plain(
+            *args, xtol=xtol, it_max=it_max)]
+        for k2, v in _subproblem_close(host, got, plain, xtol,
+                                       it_max).items():
+            worst[k2] = max(worst[k2], v)
+    m, L = seen[0][0][0].numel(), seen[0][0][3].numel()
+    print(f"fused: subproblem kernel on {len(seen)} steps' inputs (m {m}, "
+          f"L {L}): bit for bit its emulation; against plain (cuSOLVER "
+          f"eigh + Newton loop) worst theta {worst['theta']:.2f} eps "
+          f"||T||, lambda {worst['lam']:.3e} relative, Newton count gap "
+          f"{worst['its']}, step {worst['step']:.3e} relative; "
+          f"{newton_its} Newton steps, {rotations} QL rotations")
+
+    # times on the last step's inputs: kernel, plain, eigh alone
+    args = seen[-1][0]
+    T = (torch.diag(args[0]) + torch.diag(args[1], -1)
+         + torch.diag(args[1], 1))
+    kms, pms = alternating_ms(
+        lambda v: sp.tridiag_secular(*args, xtol=xtol, it_max=it_max)[2],
+        lambda v: sp.tridiag_secular_plain(*args, xtol=xtol,
+                                           it_max=it_max)[2], args[3])
+    eigh_ms = device_time_per_call(lambda v: torch.linalg.eigh(T)[0],
+                                   args[0])
+    one = torch.zeros(1, device=dev)
+    launch_ms = device_time_per_call(lambda v: v + 1.0, one)
+    steps_its = int(seen[-1][1][3].sum())
+    # bytes: the inputs once, theta, Q, lams and its once; operations: the
+    # last step's QL rotations (~20 scalar + 6 m for its row updates),
+    # its Newton steps (~6 m + 12 each), the sort's m^2 comparisons
+    sp.tridiag_secular_emulated(*[a.cpu().numpy() for a in args],
+                                xtol=xtol, it_max=it_max)
+    isz = args[0].element_size()
+    nbytes = isz * (m + (m - 1) + 1 + L + 1 + m + m * m + L) + 8 * L
+    flops = (sp.tridiag_secular_emulated.rotations * (20 + 6 * m)
+             + steps_its * (6 * m + 12) + m * m)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"fused: subproblem kernel {kms} ms, plain {pms} ms, "
+          f"torch.linalg.eigh alone {eigh_ms:.4f} ms, one small kernel "
+          f"{launch_ms:.4f} ms; bound {bound_ms:.3e} ms by {bound_by} "
+          f"({nbytes} bytes, {flops} operations)")
+
+    # ---- one chunk: eager against replayed ----
+    graphs = fresh._step_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    entry = graphs.graph(gd, st0, kw, False, True, FUSED_CHUNK)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 1e6
+    eager, e_outs = kg.gram_krylov_multistep(gd, st0, chunk=FUSED_CHUNK,
+                                             stack_reps=True, use_lr=False,
+                                             **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed, r_outs = graphs.run(entry, st0, FUSED_CHUNK, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    flat = lambda o: [o[0][0], o[0][1], *o[1:4], *o[4]]
+    names = ["value", "value_lo", "grad_norm", "diff_norm", "solver_it",
+             "gamma", "zeta"]
+    differ = [f for f in kg.GramKrylovState._fields
+              if not torch.equal(getattr(replayed, f), getattr(eager, f))]
+    differ += [f"rows {n}" for n, a, b in zip(names, flat(r_outs),
+                                              flat(e_outs))
+               if not torch.equal(a, b)]
+    print(f"fused: capture {capture_s:.3f} s (warm-up step included), graph "
+          f"pool and static buffers {pool_mb:.1f} MB; a {FUSED_CHUNK}-step "
+          f"chunk replayed inside sync debug mode 'error' against eager: "
+          f"{'bit for bit' if not differ else f'differs in {differ}'}")
+    if differ:
+        raise RuntimeError(f"fused: the replayed chunk differs from the "
+                           f"eager one in {differ}")
+
+    # ---- wall, device, busy share and launches per step ----
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    replay = lambda: graphs.run(entry, st0, FUSED_CHUNK, True)
+    eager_chunk = lambda: kg.gram_krylov_multistep(
+        gd, st0, chunk=FUSED_CHUNK, stack_reps=True, use_lr=False, **kw)
+    eager_4 = lambda: kg.gram_krylov_multistep(
+        gd, st0, chunk=4, stack_reps=True, use_lr=False, **kw)
+    walls = {"eager": [], "replayed": []}
+    for name in ("replayed", "eager", "eager", "replayed"):
+        fn = replay if name == "replayed" else eager_chunk
+        walls[name].append(wall(fn) / FUSED_CHUNK)
+    prof = {"replayed": _profile_steps(replay, FUSED_CHUNK),
+            "eager": _profile_steps(eager_4, 4)}
+    out = dict(seen=len(seen), worst=worst, newton_its=newton_its,
+               rotations=rotations, ms=min(kms), ms_runs=kms,
+               plain_ms=min(pms), plain_ms_runs=pms, eigh_ms=eigh_ms,
+               launch_ms=launch_ms, bound_ms=bound_ms, bound_by=bound_by,
+               capture_s=capture_s, pool_mb=pool_mb)
+    for name in ("eager", "replayed"):
+        p = prof[name]
+        w = min(walls[name])
+        out[name] = dict(p, wall_ms=w, wall_ms_runs=walls[name],
+                         busy=p["device_ms"] / w)
+        print(f"fused: {name} step: wall {walls[name]} ms, device "
+              f"{p['device_ms']:.3f} ms, busy {p['device_ms'] / w:.1%}, "
+              f"host launches {p['launches']:.1f}, device kernels "
+              f"{p['kernels']:.1f}, symv_upper {p['symv']:.1f}")
+    if prof["replayed"]["symv"] != 11 or prof["eager"]["symv"] != 11:
+        raise RuntimeError(f"fused: {prof['replayed']['symv']} SYMV "
+                           f"kernels per replayed step, "
+                           f"{prof['eager']['symv']} per eager step (want "
+                           "11)")
+    del fresh, graphs, entry
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_news20(dev):
@@ -626,7 +942,13 @@ def phase_bf16_head(dev, tag, alg, fp32_rec, it_max):
     lr_launches = cnt["matvec_shapes"].get(bf16_key, 0)
     print(f"{tag} bf16_head: bf16 matvec launches at {bf16_key} "
           f"{lr_launches}, _lr_matvec calls on the card {cnt['lr_calls']}; "
-          f"symv launches {cnt['symv']}, k_matvec calls {cnt['kmatvec_calls']}")
+          f"symv launches {cnt['symv']}, k_matvec calls {cnt['kmatvec_calls']}"
+          f"; graph replays {cnt['graph_replays']} (captures "
+          f"{cnt['graph_captures']}), subproblem launches "
+          f"{cnt['subproblem']}")
+    if not cnt["graph_replays"] >= head.it:
+        raise RuntimeError(f"{tag} bf16_head: {cnt['graph_replays']} graph "
+                           f"replays for {head.it} iterations")
     if not (lr_launches == cnt["lr_calls"] and lr_launches > 0):
         raise RuntimeError(f"{tag} bf16_head: bf16 products bypassed the "
                            f"kernel: {lr_launches} launches vs "
@@ -694,7 +1016,9 @@ def phase_bf16_head(dev, tag, alg, fp32_rec, it_max):
                 best_gap=min(gaps), boundary_fs=bfs,
                 rollback_its=list(trace.metrics["rollback_its"]),
                 lr_launches=lr_launches, lr_calls=cnt["lr_calls"],
-                symv_launches=cnt["symv"], rel_err=rel,
+                symv_launches=cnt["symv"],
+                subproblem_launches=cnt["subproblem"],
+                graph_replays=cnt["graph_replays"], rel_err=rel,
                 rel_err_plain=rel_plain, max_abs_err=err,
                 step_head_ms=hms, step_symv_ms=sms, refresh_ms=refresh_ms,
                 fp32_race_s=fp32_rec["race_s"],
@@ -1097,26 +1421,39 @@ def _reset_counts():
     from krylov_crn_tpu_torch.ops.gram import k_matvec
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
+    from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
     from krylov_crn_tpu_torch.ops.symv import symv
-    from krylov_crn_tpu_torch.solvers.krylov_gram import _lr_matvec
+    from krylov_crn_tpu_torch.solvers.krylov_gram import (
+        _lr_matvec,
+        gram_krylov_step,
+    )
 
     symv.launches = k_matvec.cuda_calls = _lr_matvec.cuda_calls = 0
     matvec.launches = dense_matvec.cuda_calls = 0
-    matvec.shape_launches = {}
+    matvec.shape_launches.clear()
+    tridiag_secular.launches = 0
+    gram_krylov_step.graph_captures = gram_krylov_step.graph_replays = 0
 
 
 def _counts():
     from krylov_crn_tpu_torch.ops.gram import k_matvec
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
+    from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
     from krylov_crn_tpu_torch.ops.symv import symv
-    from krylov_crn_tpu_torch.solvers.krylov_gram import _lr_matvec
+    from krylov_crn_tpu_torch.solvers.krylov_gram import (
+        _lr_matvec,
+        gram_krylov_step,
+    )
 
     return dict(symv=symv.launches, kmatvec_calls=k_matvec.cuda_calls,
                 lr_calls=_lr_matvec.cuda_calls,
                 matvec=matvec.launches, dense_calls=dense_matvec.cuda_calls,
                 matvec_shapes={f"{n}x{m}_{dt}": k for (n, m, dt), k
-                               in matvec.shape_launches.items()})
+                               in matvec.shape_launches.items()},
+                subproblem=tridiag_secular.launches,
+                graph_captures=gram_krylov_step.graph_captures,
+                graph_replays=gram_krylov_step.graph_replays)
 
 
 def _jax_sscn_curve(m):
@@ -1187,7 +1524,12 @@ def phase_cli_gram(f_star):
           f"{kry.trace.metrics['exact_fs'][-1] - f_star:.3e} gap; f* of the "
           f"grid {grid.f_opt:.17g}")
     print(f"cli_gram: symv launches {cnt['symv']}, k_matvec calls on the "
-          f"card {cnt['kmatvec_calls']}, matvec launches {cnt['matvec']}")
+          f"card {cnt['kmatvec_calls']}, matvec launches {cnt['matvec']}; "
+          f"GramKrylov's graph replays {cnt['graph_replays']}, subproblem "
+          f"launches {cnt['subproblem']}")
+    if not cnt["graph_replays"] >= kry.it > 0:
+        raise RuntimeError(f"cli_gram: GramKrylov replayed "
+                           f"{cnt['graph_replays']} steps of {kry.it}")
     if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
         raise RuntimeError(f"cli_gram: K-matvecs bypassed the kernel: "
                            f"{cnt['symv']} launches vs "
@@ -1206,7 +1548,9 @@ def phase_cli_gram(f_star):
                 rollback_its=list(m.get("rollback_its", [])),
                 sscn_gap=s_gap, sscn_jax_gap=jax_gap,
                 sscn_seconds=sscn.trace.ts[-1], f_opt=grid.f_opt,
-                launches=cnt["symv"], kmatvec_calls=cnt["kmatvec_calls"])
+                launches=cnt["symv"], kmatvec_calls=cnt["kmatvec_calls"],
+                graph_replays=cnt["graph_replays"],
+                subproblem_launches=cnt["subproblem"])
 
 
 def phase_sscn(dev):
@@ -1492,6 +1836,9 @@ def phase_figure2(news20_alg):
         if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
             raise RuntimeError("figure2 news20-like: K-matvecs bypassed the "
                                "kernel")
+        if not cnt["graph_replays"] >= kry.it > 0:
+            raise RuntimeError(f"figure2 news20-like: GramKrylov replayed "
+                               f"{cnt['graph_replays']} steps of {kry.it}")
         t0 = time.perf_counter()
         curves["SSCN (m=1000)"], sscn = rf.run_sscn(loss, b, x0, 50, 1000)
         torch.cuda.synchronize()
@@ -1503,7 +1850,8 @@ def phase_figure2(news20_alg):
             rf.leg_meta(name, A, 50, "h100-fp32", None))
         gaps = _final_gaps_ok("figure2 news20-like", data)
         print(f"figure2 news20-like: GramKrylov m=10 {kry.it} iterations "
-              f"certified in {kry_s:.3f} s, symv launches {cnt['symv']}; "
+              f"certified in {kry_s:.3f} s, symv launches {cnt['symv']}, "
+              f"graph replays {cnt['graph_replays']}; "
               f"SSCN m=1000 {sscn.it} iterations in {sscn_ts[-1]:.3f} s "
               f"({sscn_ts[-1] / max(sscn.it, 1) * 1e3:.1f} ms per step; "
               f"{sscn_s:.3f} s with warm-up and fp64 certification), "
@@ -1514,7 +1862,9 @@ def phase_figure2(news20_alg):
                          sscn_ms_per_step=sscn_ts[-1] / max(sscn.it, 1) * 1e3,
                          f_star=data["f_star"], final_gaps=gaps,
                          launches=cnt["symv"],
-                         kmatvec_calls=cnt["kmatvec_calls"])
+                         kmatvec_calls=cnt["kmatvec_calls"],
+                         graph_replays=cnt["graph_replays"],
+                         subproblem_launches=cnt["subproblem"])
     return out
 
 
@@ -1637,6 +1987,7 @@ def _mesh_rank(mesh):
                    split_panels=syrk_split_P.cuda_calls)
     matvec.launches = symv.launches = 0
     k_matvec.band_cuda_calls = k_matvec.cuda_calls = 0
+    gram_krylov_step.graph_replays = 0
     mesh.reset_counts()
     t0 = time.perf_counter()
     trace = alg.run_fused(x0, it_max=48, chunk=24, certify=True)
@@ -1653,6 +2004,7 @@ def _mesh_rank(mesh):
         loss_vals=[float(v) for v in trace.loss_vals],
         launches=matvec.launches, band_calls=k_matvec.band_cuda_calls,
         symv_launches=symv.launches, whole_calls=k_matvec.cuda_calls,
+        graph_replays=gram_krylov_step.graph_replays,
         counts=mesh.counts_snapshot())
     # one more step on its own: the per-step collective budget
     mesh.reset_counts()
@@ -1794,7 +2146,8 @@ def phase_mesh(card, main_rec, sparse_rec, sscn_rec):
           f"{race['counts']['all_gather']['bytes']} B), "
           f"{race['counts']['all_reduce']['calls']} all-reduces; one step: "
           f"{ {k: v['calls'] for k, v in r0['step_counts'].items()} }; symv "
-          f"launches {race['symv_launches']}")
+          f"launches {race['symv_launches']}; graph replays "
+          f"{race['graph_replays']} (the sharded step runs eagerly)")
     if cross is None or cross > 48:
         raise RuntimeError(f"mesh: no certified {GAP} gap within 48 "
                            f"iterations (best {min(gaps):.3e})")
@@ -1822,7 +2175,8 @@ def phase_mesh(card, main_rec, sparse_rec, sscn_rec):
                 and c["all_gather"]["calls"] % 11 == 0
                 and c["all_gather"]["max_numel"] == rc["n_pad"]
                 and c["all_reduce"]["calls"] == 0
-                and rc["symv_launches"] == rc["whole_calls"] == 0):
+                and rc["symv_launches"] == rc["whole_calls"] == 0
+                and rc["graph_replays"] == 0):
             raise RuntimeError(f"mesh: rank {r['rank']} band products or "
                                f"collectives off budget: {rc}")
         sc = r["step_counts"]
@@ -1894,6 +2248,7 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "news20", "rcv1",
               "symv_effective_gbps", "coo_hvp_mnnz_per_s", "gap_target")
 BENCH_RACE_KEYS = ("problem", "build_s", "f_star", "ours_gap_reached",
                    "ours_s", "ours_attempts_s", "ours_final_gap")
+OUR_ITS = 48  # the bench's race length (krylov_crn_tpu_torch.bench)
 BENCH_REPS = 2
 BENCH_TIMEOUT = 600.0
 BENCH_SYMV_REL = 0.10  # its symv_ms against phase kernel@K's median
@@ -1934,7 +2289,11 @@ def phase_bench(card, symv_ms, panels):
         print(f"bench {r}: {res['ours_s']} s to the gap (build "
               f"{res['build_s']} s, attempts {res['ours_attempts_s']}), "
               f"crossing at iteration {res['ours_crossing_it']}, final gap "
-              f"{res['ours_final_gap']}; symv launches {sl}")
+              f"{res['ours_final_gap']}; symv launches {sl}; graph replays "
+              f"{res['graph_replays']}")
+        if not res["graph_replays"] >= BENCH_REPS * OUR_ITS:
+            raise RuntimeError(f"bench {r}: {res['graph_replays']} graph "
+                               f"replays in {BENCH_REPS} attempts")
         if not (res["ours_gap_reached"] and res["ours_crossing_it"] <= 48):
             raise RuntimeError(f"bench {r}: no certified {GAP} gap within "
                                "48 iterations")
@@ -1971,6 +2330,7 @@ def main(argv=None):
     record = {"card": card, "build_s": phase_build(),
               "kernel": phase_kernel(dev)}
     alg, record["main"] = phase_main(dev)
+    record["fused"] = phase_fused(dev, alg)
     record["kernel_on_K"] = phase_kernel_on_K(dev, alg.gd.K)
     record["bf16_head"] = {"rcv1-like": phase_bf16_head(
         dev, "main", alg, record["main"], BF16_HEAD_ITS["rcv1-like"])}
@@ -2073,7 +2433,25 @@ def main(argv=None):
         matvec_record(f"matvec_bf16_K_{n}x{n}", f"{n}x{n}_bfloat16",
                       record["bf16_head"][name]["lr_launches"],
                       record["bf16_head"][name]["max_abs_err"])
-        for name, n in (("rcv1-like", 20480), ("news20-like", 20224))]}
+        for name, n in (("rcv1-like", 20480), ("news20-like", 20224))] + [{
+        # not a TPU kernel's counterpart: the JAX step's eigh and vmapped
+        # Newton, which XLA runs on the device; max_abs_err over theta and
+        # the finite lambdas against the plain version on 48 steps' inputs,
+        # timed on the 48th step's
+        "name": "tridiag_secular", "route": "cuda",
+        "source": "krylov_crn_tpu_torch/csrc/subproblem.cu",
+        "replaces": "krylov_crn_tpu/ops/subproblem.py:48",
+        "launches": (record["main"]["subproblem_launches"]
+                     + record["news20"]["subproblem_launches"]
+                     + record["cli_gram"]["subproblem_launches"]
+                     + fig["news20-like"]["subproblem_launches"]
+                     + sum(h["subproblem_launches"]
+                           for h in record["bf16_head"].values())),
+        "max_abs_err": record["fused"]["worst"]["abs_err"],
+        "ms": record["fused"]["ms"], "plain_ms": record["fused"]["plain_ms"],
+        "bound_ms": record["fused"]["bound_ms"],
+        "bound_by": record["fused"]["bound_by"],
+        "library_ms": record["fused"]["eigh_ms"]}]}
     for rec in kernels["kernels"]:
         if rec["launches"] <= 0:
             raise RuntimeError(f"{rec['name']}: no launch on its path")

@@ -23,7 +23,10 @@ kernel times are CUDA-event medians of chained calls
 the timed regions, as in ``bench.py``: before a race's first attempt the
 kernel libraries are loaded (their nvcc build at first use) and SYMV and
 one cuBLAS product run once on a small K, which also makes the CUDA
-context and the cuBLAS handle. Nothing else is warmed. Each side runs
+context and the cuBLAS handle; after each attempt's K build,
+``GramKrylov.warm_fused`` captures the race's step graphs, as
+``bench.py`` calls the JAX package's ``warm_fused`` before its timed race.
+Nothing else is warmed. Each side runs
 ``reps`` end-to-end attempts and scores its min time-to-gap; every
 attempt's time rides in the JSON.
 
@@ -33,7 +36,8 @@ returns None and ``vs_baseline`` is null.
 
 Prints ONE JSON line with ``bench.py``'s keys, plus ``card`` (the card's
 name and power limit), ``hvp_format`` and, per race, ``ours_crossing_it``,
-``symv_launches`` and ``k_build``. Needs a card: without one it raises.
+``symv_launches``, ``graph_replays`` and ``k_build``. Needs a card:
+without one it raises.
 """
 
 from __future__ import annotations
@@ -151,6 +155,8 @@ def bench_ours(A, b, x0, device=None):
     # symmetric would race on another matrix (checked outside the timing)
     if not torch.equal(alg.gd.K, alg.gd.K.T):
         raise RuntimeError("bench: the built K is not bitwise symmetric")
+    # capture the race's step graphs outside its timed region
+    alg.warm_fused(chunk=CHUNK, certify=True)
 
     # certify=True: every within-chunk iterate is exact-evaluated on the
     # host after the run, so the crossing is certified at its
@@ -220,7 +226,9 @@ def race(name, reps=2, device=None):
     Adds ``ours_crossing_it`` (the scored attempt's certified crossing
     iteration, a count that compares across hardware), ``symv_launches``
     (the SYMV kernel's launches over all attempts beside the K-matvecs
-    made on the card; they must be equal) and ``k_build`` (the K builds'
+    made on the card; they must be equal; a replayed step counts what
+    its capture launched), ``graph_replays`` (the replayed steps of all
+    attempts, races and f* runs) and ``k_build`` (the K builds''
     panels over all attempts beside those whose bf16 split products ran
     on the card, equal for fp32; each built K is bitwise symmetric or the
     attempt raises)."""
@@ -230,11 +238,13 @@ def race(name, reps=2, device=None):
         syrk_split_P,
     )
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.krylov_gram import gram_krylov_step
 
     dev = resolve_device(device)
     A, b, x0 = _problem(name)
     _load_kernels(dev)
     symv.launches = k_matvec.cuda_calls = 0
+    gram_krylov_step.graph_replays = 0
     build_K_device.panels = syrk_split_P.cuda_calls = 0
     ours_attempts = []
     for _ in range(reps):
@@ -280,6 +290,7 @@ def race(name, reps=2, device=None):
         "ours_final_gap": fs and min(fs) - f_star,
         "ours_crossing_it": crossings[best][1],
         "symv_launches": {"launches": launches, "k_matvec_calls": calls},
+        "graph_replays": gram_krylov_step.graph_replays,
         "k_build": {"panels": build_K_device.panels,
                     "split_panels": syrk_split_P.cuda_calls},
     }

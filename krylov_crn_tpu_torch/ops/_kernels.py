@@ -37,6 +37,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # spills (kept in last_build_log)
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
+# flags of one kernel on top of those: csrc/subproblem.cu is emulated bit
+# for bit on the CPU (ops/subproblem.py), so every operation there rounds on
+# its own (no fused multiply-add) and divides and roots to nearest
+KERNEL_FLAGS = {"subproblem": ["--fmad=false", "--prec-div=true",
+                               "--prec-sqrt=true", "--ftz=false"]}
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -97,9 +102,10 @@ def _load(name: str, build) -> ctypes.CDLL:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, built with nvcc on first
-    use."""
+    use (with ``KERNEL_FLAGS[name]`` where it has any)."""
+    flags = ARCH_FLAGS + NVCC_FLAGS + KERNEL_FLAGS.get(name, [])
     return _load(name, lambda: _build(name, CSRC / f"{name}.cu", nvcc_path(),
-                                      ARCH_FLAGS + NVCC_FLAGS))
+                                      flags))
 
 
 def load_host_library(name: str) -> ctypes.CDLL:

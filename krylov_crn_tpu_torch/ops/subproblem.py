@@ -9,18 +9,33 @@ secular-equation approach, reference cubic.py:40-75):
   secular equation for a batch of regularizations at once (the JAX
   package vmaps a ``while_loop``; here the candidates form a batch axis
   with a per-candidate done mask);
+* ``tridiag_secular``: the tridiagonal eigen-solve and the batched Newton
+  of one Gram Krylov step in one launch of the hand-written kernel
+  ``csrc/subproblem.cu`` on a card, with no host read (the JAX step's
+  ``tridiag_eigh`` and vmapped ``secular_newton``, which XLA runs on the
+  device). ``tridiag_secular_plain`` is the same function from the two
+  pieces above (the CPU's path), and ``tridiag_secular_emulated`` the
+  kernel's own scalar algorithm in numpy, bit for bit;
 * a matrix-free CG variant for the full-space CRN "CG" solver
   (cubic.py:152-182): each phi needs one CG solve, each phi' a second.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["sym_eigh", "tridiag_eigh", "secular_newton", "CubicSolution",
-           "cubic_solve_eigh", "cubic_subproblem_eigh", "cubic_solve_cg"]
+__all__ = ["sym_eigh", "tridiag_eigh", "secular_newton", "tridiag_secular",
+           "tridiag_secular_plain", "tridiag_secular_emulated",
+           "CubicSolution", "cubic_solve_eigh", "cubic_subproblem_eigh",
+           "cubic_solve_cg"]
+
+MAX_M = 64  # csrc/subproblem.cu: the largest tridiagonal
+MAX_CANDIDATES = 64  # csrc/subproblem.cu: threads of its one block
+QL_MAX_SWEEPS = 60  # csrc/subproblem.cu: QL sweeps per eigenvalue
 
 
 def sym_eigh(H: torch.Tensor):
@@ -95,6 +110,252 @@ def secular_newton(theta, c, M, r0, xtol: float = 1e-8, it_max: int = 100):
         lam = torch.where(active, lam_new, lam)
         its = its + active.to(its.dtype)
     return lam, its
+
+
+def tridiag_secular_plain(alphas, betas, g_norm, regs, r0,
+                          xtol: float = 1e-8, it_max: int = 100):
+    """(theta, Q, lams, its) of one Gram Krylov step in plain PyTorch:
+    ``tridiag_eigh`` of T(alphas, betas), c = g_norm * Q[0, :], then
+    ``secular_newton`` over the candidate regularizations ``regs``."""
+    theta, Q = tridiag_eigh(alphas, betas)
+    c = g_norm * Q[0, :]
+    lams, its = secular_newton(theta, c, regs, r0, xtol=xtol, it_max=it_max)
+    return theta, Q, lams, its
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from krylov_crn_tpu_torch.ops._kernels import load_library
+
+        lib = load_library("subproblem")
+        for fn in (lib.tridiag_secular_f32, lib.tridiag_secular_f64):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_double] + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p] * 5
+            fn.restype = ctypes.c_int
+        for fn in (lib.tridiag_secular_max_m,
+                   lib.tridiag_secular_max_candidates):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        if (lib.tridiag_secular_max_m() != MAX_M
+                or lib.tridiag_secular_max_candidates() != MAX_CANDIDATES):
+            raise RuntimeError("csrc/subproblem.cu limits disagree with "
+                               "MAX_M / MAX_CANDIDATES")
+        _lib = lib
+    return _lib
+
+
+def _check(alphas, betas, g_norm, regs, r0):
+    ts = dict(alphas=alphas, betas=betas, g_norm=g_norm, regs=regs, r0=r0)
+    dev, dt = alphas.device, alphas.dtype
+    for name, t in ts.items():
+        if not (t.is_cuda and t.device == dev):
+            raise ValueError(f"tridiag_secular: {name} ({t.device}) must lie "
+                             f"on alphas' CUDA device ({dev})")
+        if t.dtype != dt or dt not in (torch.float32, torch.float64):
+            raise TypeError(f"tridiag_secular: fp32 or fp64 throughout, got "
+                            f"{name} {t.dtype} beside alphas {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"tridiag_secular: {name} must be contiguous")
+    m, L = alphas.numel(), regs.numel()
+    if (alphas.dim() != 1 or betas.shape != (m - 1,) or regs.dim() != 1
+            or g_norm.numel() != 1 or r0.numel() != 1):
+        raise ValueError(f"tridiag_secular: alphas (m,), betas (m-1,), regs "
+                         f"(L,) and one-element g_norm and r0, got "
+                         f"{tuple(alphas.shape)}, {tuple(betas.shape)}, "
+                         f"{tuple(regs.shape)}, {tuple(g_norm.shape)}, "
+                         f"{tuple(r0.shape)}")
+    if not (1 <= m <= MAX_M and 1 <= L <= MAX_CANDIDATES):
+        raise ValueError(f"tridiag_secular: m = {m} (at most {MAX_M}) and "
+                         f"L = {L} (at most {MAX_CANDIDATES})")
+
+
+def tridiag_secular(alphas, betas, g_norm, regs, r0, xtol: float = 1e-8,
+                    it_max: int = 100):
+    """(theta, Q, lams, its): the eigendecomposition of the tridiagonal
+    T(alphas, betas), ascending, and the secular Newton roots ``lams``
+    with their iteration counts for every candidate regularization in
+    ``regs`` (shape (L,)), with c = g_norm * Q[0, :] and the warm start
+    ``r0``.
+
+    CPU tensors: ``tridiag_secular_plain``. CUDA tensors (fp32 or fp64,
+    m <= MAX_M, L <= MAX_CANDIDATES): one launch of ``csrc/subproblem.cu``,
+    which reads nothing back to the host, or an error. Eigenvector signs
+    may differ between the two; the steps built from them do not."""
+    if all(t.device.type == "cpu" for t in (alphas, betas, g_norm, regs,
+                                            r0)):
+        return tridiag_secular_plain(alphas, betas, g_norm, regs, r0,
+                                     xtol=xtol, it_max=it_max)
+    _check(alphas, betas, g_norm, regs, r0)
+    lib = _library()
+    m, L = alphas.numel(), regs.numel()
+    dt, dev = alphas.dtype, alphas.device
+    theta = torch.empty(m, dtype=dt, device=dev)
+    Q = torch.empty((m, m), dtype=dt, device=dev)
+    lams = torch.empty(L, dtype=dt, device=dev)
+    its = torch.empty(L, dtype=torch.int64, device=dev)
+    fn = (lib.tridiag_secular_f32 if dt == torch.float32
+          else lib.tridiag_secular_f64)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(alphas.data_ptr(), betas.data_ptr(), g_norm.data_ptr(),
+                 regs.data_ptr(), r0.data_ptr(), float(xtol), int(it_max), m,
+                 L, theta.data_ptr(), Q.data_ptr(), lams.data_ptr(),
+                 its.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"tridiag_secular kernel launch failed: CUDA "
+                           f"error {err}")
+    tridiag_secular.launches += 1
+    return theta, Q, lams, its
+
+
+tridiag_secular.launches = 0
+
+
+def _radius(a, b, T):
+    """sqrt(a^2 + b^2) as the kernel takes it (``radius``)."""
+    absa, absb = abs(a), abs(b)
+    if absa > absb:
+        p = absb / absa
+        return absa * np.sqrt(T(1) + p * p)
+    if absb == 0:
+        return T(0)
+    p = absa / absb
+    return absb * np.sqrt(T(1) + p * p)
+
+
+def tridiag_secular_emulated(alphas, betas, g_norm, regs, r0,
+                             xtol: float = 1e-8, it_max: int = 100):
+    """``csrc/subproblem.cu``'s algorithm in numpy scalars of alphas'
+    dtype (float32 or float64), each operation rounded on its own as the
+    kernel (built with --fmad=false) rounds it: the same (theta, Q, lams,
+    its) bit for bit, as numpy arrays. Inputs are numpy arrays and
+    scalars.
+
+    Implicit-shift QL with eigenvectors (tqli; radius |a| sqrt(1 +
+    (b/a)^2)), a selection sort to ascending order, then per candidate
+    the secular Newton of ``secular_newton`` with the sums over the modes
+    in index order. A column rotation here applies to all rows at once;
+    the kernel applies a sweep's rotations row by row, in the same order,
+    so every element sees the same operations."""
+    alphas = np.asarray(alphas)
+    T = alphas.dtype.type
+    if alphas.dtype not in (np.float32, np.float64):
+        raise TypeError(f"fp32 or fp64 only, got {alphas.dtype}")
+    m = alphas.shape[0]
+    d = alphas.astype(T).copy()
+    e = np.zeros(m, T)
+    e[:m - 1] = np.asarray(betas, T)
+    z = np.eye(m, dtype=T)
+    failed = False
+    with np.errstate(all="ignore"):
+        l = sweeps = rotations = 0
+        while l < m:
+            mm = l
+            while mm < m - 1:
+                dd = abs(d[mm]) + abs(d[mm + 1])
+                if abs(e[mm]) + dd == dd:
+                    break
+                mm += 1
+            if mm == l:
+                l += 1
+                sweeps = 0
+                continue
+            if sweeps == QL_MAX_SWEEPS:
+                failed = True
+                break
+            sweeps += 1
+            rotations += mm - l
+            g = (d[l + 1] - d[l]) / (T(2) * e[l])
+            r = _radius(g, T(1), T)
+            g = d[mm] - d[l] + e[l] / (g + (abs(r) if g >= 0 else -abs(r)))
+            s = c = T(1)
+            p = T(0)
+            i = mm - 1
+            while i >= l:
+                f = s * e[i]
+                b = c * e[i]
+                r = _radius(f, g, T)
+                e[i + 1] = r
+                if r == 0:
+                    d[i + 1] = d[i + 1] - p
+                    e[mm] = T(0)
+                    break
+                s = f / r
+                c = g / r
+                g = d[i + 1] - p
+                r = (d[i] - g) * s + T(2) * c * b
+                p = s * r
+                d[i + 1] = g + p
+                g = c * r - b
+                zf = z[:, i + 1].copy()
+                z[:, i + 1] = s * z[:, i] + c * zf
+                z[:, i] = c * z[:, i] - s * zf
+                i -= 1
+            if not (r == 0 and i >= l):
+                d[l] = d[l] - p
+                e[l] = g
+                e[mm] = T(0)
+
+        perm = list(range(m))
+        for i in range(m - 1):
+            k, p = i, d[i]
+            for j in range(i + 1, m):
+                if d[j] < p:
+                    k, p = j, d[j]
+            if k != i:
+                d[k] = d[i]
+                d[i] = p
+                perm[i], perm[k] = perm[k], perm[i]
+        if failed:
+            d[:] = np.nan
+        theta, Q = d, z[:, perm]
+        c = T(g_norm) * Q[0, :]
+        c2 = c * c
+
+        M = np.asarray(regs, T)
+        MM = M * M
+        mn = theta[0]
+        for i in range(1, m):
+            if theta[i] < mn:
+                mn = theta[i]
+        lo = -mn if -mn > 0 else T(0)
+        lo_strict = lo + T(1e-6) * (T(1) + lo) if lo > 0 else lo
+        r0 = T(r0)
+        lam = np.full(M.shape, r0 if r0 >= lo_strict else lo_strict, T)
+        step = np.full(M.shape, np.inf, T)
+        its = np.zeros(M.shape, np.int64)
+        xt = T(xtol)
+        while True:
+            active = (np.abs(step) >= xt) & (its < it_max)
+            if not active.any():
+                break
+            s2 = np.zeros(M.shape, T)
+            s3 = np.zeros(M.shape, T)
+            for i in range(m):
+                if c2[i] > 0:
+                    sf = theta[i] + lam
+                    sq = sf * sf
+                    s2 = s2 + c2[i] / sq
+                    s3 = s3 + c2[i] / (sq * sf)
+            phi = lam * lam - MM * s2
+            dphi = T(2) * lam + T(2) * MM * s3
+            lam_new = lam - phi / dphi
+            lam_new = np.where(lam_new <= lo, (lam + lo) / T(2), lam_new)
+            step = np.where(active, lam_new - lam, step)
+            lam = np.where(active, lam_new, lam)
+            its = its + active
+    tridiag_secular_emulated.rotations = rotations
+    return theta, Q, lam, its
+
+
+# the QL rotations of the last call, at most one sweep's full length each
+# (the work a bound on the kernel's time counts)
+tridiag_secular_emulated.rotations = 0
 
 
 def cubic_solve_eigh(theta, Q, g, M, r0, xtol: float = 1e-8,

@@ -12,6 +12,13 @@ margins, gradient image and value re-evaluated exactly in fp64 on the
 host at every chunk boundary (``run_fused``); a chunk that does not
 improve the exact value is rolled back (trust-but-verify).
 
+Between chunk boundaries a card runs without the host, as the JAX
+package's ``lax.scan`` under ``jit`` does: the subproblem of a step (the
+tridiagonal eigh and the candidates' secular Newton) is one launch of the
+kernel ``csrc/subproblem.cu`` with no host read, and on one card
+``run_fused`` replays the step captured as a CUDA graph (``_StepGraphs``;
+``GramKrylov.warm_fused`` captures ahead of a timed run).
+
 Under a mesh (``GramKrylov(mesh=)``) K is row-banded over the ranks and
 every state vector is replicated: each rank runs the same step on the
 same bytes, and the only collectives of a step are the m + 1 all-gathers
@@ -65,7 +72,8 @@ from krylov_crn_tpu_torch.ops.math import (
     two_sum,
 )
 from krylov_crn_tpu_torch.ops.matvec import matvec
-from krylov_crn_tpu_torch.ops.subproblem import secular_newton, tridiag_eigh
+from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
+from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows, check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 
@@ -282,15 +290,17 @@ def gram_krylov_step(
     if lr:
         lz = lz._replace(Vu=_refresh_images(gd, lz.Vb, lz.Vw))
 
-    theta, Q = tridiag_eigh(lz.alphas.to(adt), lz.betas.to(adt))
     g_norm = torch.sqrt(torch.clamp(rep_dot(gd, g, g, adt), min=0.0))
-    c = g_norm * Q[0, :]
 
     # ---- batched line search over all candidate regularizations ----
     ks = torch.arange(L, dtype=adt, device=dev)
     regs = state.reg_coef.to(adt) * beta * (1.0 / beta) ** ks
-    lams, its = secular_newton(theta, c, regs, state.r0.to(adt),
-                               xtol=solver_eps, it_max=solver_it_max)
+    # the tridiagonal's eigh and every candidate's secular Newton, in one
+    # launch on a card (no host read)
+    theta, Q, lams, its = tridiag_secular(
+        lz.alphas.to(adt), lz.betas.to(adt), g_norm, regs, state.r0.to(adt),
+        xtol=solver_eps, it_max=solver_it_max)
+    c = g_norm * Q[0, :]
     # (L, m); zero-weight modes contribute a zero step, not 0/0
     denom = theta[None, :] + lams[:, None]
     cz = c[None, :] != 0
@@ -367,20 +377,193 @@ def gram_krylov_step(
 
 def gram_krylov_multistep(gd: GramData, state: GramKrylovState,
                           chunk: int = 16, stack_reps: bool = False, **kw):
-    """``chunk`` iterations with no host read except the secular Newton
-    loop's; returns the final state plus per-iteration ((value, value_lo),
-    grad_norm, diff_norm, solver_it) stacks, and with ``stack_reps`` each
-    iteration's (gamma, zeta) rep for post-hoc exact evaluation."""
+    """``chunk`` eager iterations with no host read (on a card, where the
+    subproblem kernel runs the Newton loops); returns the final state plus
+    per-iteration ((value, value_lo), grad_norm, diff_norm, solver_it)
+    stacks, and with ``stack_reps`` each iteration's (gamma, zeta) rep for
+    post-hoc exact evaluation. ``GramKrylov.run_fused`` replays captured
+    steps instead on one card (``_StepGraphs``); this is its path under a
+    mesh of several ranks and on the CPU."""
     rows = []
     for _ in range(chunk):
         state = gram_krylov_step(gd, state, **kw)
         rows.append(state)
     stack = lambda name: torch.stack([getattr(s, name) for s in rows])
+    return state, _chunk_outs(stack, stack_reps)
+
+
+def _chunk_outs(stack, stack_reps):
+    """A chunk's stacks in ``gram_krylov_multistep``'s layout, from
+    ``stack(name)``, the chunk's rows of one state field."""
     out = ((stack("value"), stack("value_lo")), stack("grad_norm"),
            stack("diff_norm"), stack("solver_it"))
     if stack_reps:
         out = out + ((stack("gamma"), stack("zeta")),)
-    return state, out
+    return out
+
+
+# the state fields a chunk stacks, and those it stacks with ``stack_reps``
+_ROWS = ("value", "value_lo", "grad_norm", "diff_norm", "solver_it")
+_REP_ROWS = ("gamma", "zeta")
+
+# a step's kernels, by their Python counters: a graph replay launches what
+# the captured step launched, and adds what its capture counted
+_COUNTERS = ((symv, "launches"), (k_matvec, "cuda_calls"),
+             (_lr_matvec, "cuda_calls"), (matvec, "launches"),
+             (tridiag_secular, "launches"))
+
+
+def _read_counts():
+    return ([getattr(h, a) for h, a in _COUNTERS],
+            dict(matvec.shape_launches))
+
+
+def _take_counts(before):
+    """Set the counters back to ``before`` (a capture launches nothing)
+    and return what they counted since, which each replay then adds."""
+    vals, shapes = before
+    now, now_shapes = _read_counts()
+    for (h, a), v in zip(_COUNTERS, vals):
+        setattr(h, a, v)
+    matvec.shape_launches.clear()
+    matvec.shape_launches.update(shapes)
+    return ([n - v for n, v in zip(now, vals)],
+            {key: k - shapes.get(key, 0) for key, k in now_shapes.items()
+             if k != shapes.get(key, 0)})
+
+
+def _add_counts(delta, times: int):
+    vals, shapes = delta
+    for (h, a), v in zip(_COUNTERS, vals):
+        setattr(h, a, getattr(h, a) + v * times)
+    for key, k in shapes.items():
+        matvec.shape_launches[key] = (matvec.shape_launches.get(key, 0)
+                                      + k * times)
+
+
+class _StepGraphs:
+    """``gram_krylov_step`` captured as CUDA graphs, for one GramKrylov
+    instance on one card (the instance owns them; releasing it frees their
+    memory pools).
+
+    Every graph reads the state from the static buffers ``state``, writes
+    the new state back into them, writes the step's rows (``_ROWS``, and
+    ``_REP_ROWS`` with ``stack_reps``) into the chunk stacks ``rows`` at
+    the device-side index ``pos`` and advances it. A chunk of k iterations
+    is then: the state copied in, ``pos`` zeroed, k replays, the state and
+    the first k rows cloned out; the host reads nothing in between.
+
+    Graphs are keyed on what the JAX package keys its jit on (``use_lr``,
+    ``stack_reps``, the step's keyword arguments, which hold m and the
+    accumulation dtype) and on the data pointers of K and K_lr; they all
+    read the buffers of one GramData, which a new one drops. Before a
+    capture the step runs once eagerly on the capture stream, so that the
+    kernels' one-time set-up and the per-stream workspaces (cuBLAS's, the
+    matvec kernel's tile tickets) happen outside the graph. A capture
+    that fails raises."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = None
+        self.gd = None
+        self.state = None
+        self.rows = {}
+        self.pos = None
+        self.graphs = {}
+
+    def _buffers(self, state: GramKrylovState, chunk: int,
+                 stack_reps: bool):
+        """Static buffers like ``state`` with room for ``chunk`` rows; new
+        buffers drop every graph (they hold the old ones' addresses)."""
+        cap = self.rows["value"].shape[0] if self.rows else 0
+        if (self.state is not None and cap >= chunk
+                and all(a.shape == b.shape and a.dtype == b.dtype
+                        for a, b in zip(self.state, state))
+                and (not stack_reps or "zeta" in self.rows)):
+            return
+        self.graphs.clear()
+        names = _ROWS + (_REP_ROWS if stack_reps or "zeta" in self.rows
+                         else ())
+        cap = max(cap, chunk)
+        self.state = GramKrylovState(*(torch.empty(t.shape, dtype=t.dtype,
+                                                   device=self.device)
+                                       for t in state))
+        self.rows = {n: torch.zeros((cap,) + tuple(getattr(state, n).shape),
+                                    dtype=getattr(state, n).dtype,
+                                    device=self.device) for n in names}
+        self.pos = torch.zeros(1, dtype=torch.int64, device=self.device)
+
+    def _load(self, state: GramKrylovState):
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def _on_capture_stream(self, fn):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+
+    def _record(self, body):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            body()
+        return graph
+
+    def graph(self, gd: GramData, state: GramKrylovState, kw: dict,
+              use_lr: bool, stack_reps: bool, chunk: int):
+        """The graph of one step under these arguments, with the counts a
+        replay adds; captured at first use (``state`` is loaded for it)."""
+        use_lr = bool(use_lr and gd.K_lr is not None)
+        if self.gd is not gd:
+            self.graphs.clear()
+            self.gd = gd
+        self._buffers(state, chunk, stack_reps)
+        key = (use_lr, bool(stack_reps), tuple(sorted(kw.items())),
+               gd.K.data_ptr(),
+               gd.K_lr.data_ptr() if gd.K_lr is not None else 0)
+        entry = self.graphs.get(key)
+        if entry is None:
+            self._load(state)
+            names = _ROWS + (_REP_ROWS if stack_reps else ())
+
+            def body():
+                out = gram_krylov_step(gd, self.state, use_lr=use_lr, **kw)
+                for n in names:
+                    self.rows[n].index_copy_(0, self.pos,
+                                             getattr(out, n).unsqueeze(0))
+                for dst, src in zip(self.state, out):
+                    dst.copy_(src)
+                self.pos.add_(1)
+
+            self._on_capture_stream(lambda: gram_krylov_step(
+                gd, GramKrylovState(*(t.clone() for t in self.state)),
+                use_lr=use_lr, **kw))
+            before = _read_counts()
+            graph = self._record(body)
+            entry = self.graphs[key] = (graph, _take_counts(before))
+            gram_krylov_step.graph_captures += 1
+        return entry
+
+    def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
+        """k replays of ``entry`` from ``state``: the final state and the
+        chunk's stacks, as ``gram_krylov_multistep`` returns them."""
+        graph, delta = entry
+        self._load(state)
+        self.pos.zero_()
+        for _ in range(k):
+            graph.replay()
+        _add_counts(delta, k)
+        gram_krylov_step.graph_replays += k
+        out = GramKrylovState(*(t.clone() for t in self.state))
+        return out, _chunk_outs(lambda n: self.rows[n][:k].clone(),
+                                stack_reps)
+
+
+gram_krylov_step.graph_captures = 0
+gram_krylov_step.graph_replays = 0
 
 
 def _init_state_packed(Ax0, buf, npad):
@@ -528,6 +711,7 @@ class GramKrylov(Optimizer):
                          else float(reg_coef))
         self.gd: GramData | None = None
         self._x0_host = None
+        self._graphs: _StepGraphs | None = None
 
     def _maybe_enter_fp32_tail(self, grad_norm):
         """Leave the bf16 K for the fp32 K once the tail begins: when the
@@ -687,11 +871,41 @@ class GramKrylov(Optimizer):
             st, torch.from_numpy(buf).to(st.Ax.device), npad, full=full)
         return value64
 
+    def _step_graphs(self):
+        """The instance's step graphs where ``run_fused`` replays them (one
+        card, no mesh of several ranks), else None: gloo's collectives
+        cannot be captured, and the CPU runs eagerly."""
+        if self.mesh is not None or not self.state.zeta.is_cuda:
+            return None
+        if self._graphs is None:
+            self._graphs = _StepGraphs(self.state.zeta.device)
+        return self._graphs
+
+    def warm_fused(self, chunk=16, certify=False):
+        """Capture every step graph that a later ``run_fused(chunk=...,
+        certify=...)`` replays, for both ``use_lr`` phases when the
+        GramData has a K_lr, as the JAX package's ``warm_fused`` compiles
+        every chunk program: one-time costs that a benchmark keeps out of
+        its timed region. Needs an initialized state (``init_run``
+        first); where ``run_fused`` runs eagerly it does nothing."""
+        if self.state is None:
+            raise ValueError("warm_fused needs an initialized state")
+        graphs = self._step_graphs()
+        if graphs is None:
+            return
+        cert = bool(certify) and self.state.zeta.dtype == torch.float32
+        kw = self._step_kwargs()
+        for lr in (True, False) if self.gd.K_lr is not None else (False,):
+            graphs.graph(self.gd, self.state, kw, lr, cert, chunk)
+
     def run_fused(self, x0, it_max, t_max=np.inf, chunk=16, seed=42,
                   certify=False):
         """Chunked run: ``chunk`` iterations between host syncs, with a
         full-resolution loss trace (wall-times interpolated within
-        chunks).
+        chunks). On one card each iteration is a replay of the captured
+        step (``_StepGraphs``; ``warm_fused`` captures ahead), so a chunk
+        makes no host read; under a mesh of several ranks and on the CPU
+        the steps run eagerly (``gram_krylov_multistep``).
 
         fp32 runs get an exact correction at every chunk boundary: the
         margins, gradient image and f are recomputed exactly in fp64 on
@@ -734,13 +948,19 @@ class GramKrylov(Optimizer):
             snap = dict(gamma=1.0, zeta=np.zeros(n_real),
                         reg=float(self.reg_coef), r0=0.1, solver_it=0,
                         f=self.trace.loss_vals[0])
+        graphs = self._step_graphs()
         while self.it < it_max:
             k = int(min(chunk_cur, it_max - self.it))
             # the bf16 head's switch holds for a whole chunk, as in the
             # JAX package, where it is a static argument of the chunk
-            self.state, outs = gram_krylov_multistep(
-                self.gd, self.state, chunk=k, stack_reps=cert,
-                use_lr=self._use_lr, **kw)
+            if graphs is not None:
+                entry = graphs.graph(self.gd, self.state, kw, self._use_lr,
+                                     cert, chunk)
+                self.state, outs = graphs.run(entry, self.state, k, cert)
+            else:
+                self.state, outs = gram_krylov_multistep(
+                    self.gd, self.state, chunk=k, stack_reps=cert,
+                    use_lr=self._use_lr, **kw)
             vpairs, gns, dns, sits = outs[:4]
             reps = outs[4] if cert else None
             # ONE bundled device-to-host copy per chunk

@@ -29,7 +29,7 @@ FSTAR_IT = 96  # both sides alike, to keep the JAX run short
 # (certified gaps there ~4e-12), reached along trajectories whose fp32
 # rounding differs: 4.2e-10 relative apart (7.6e-11 absolute on f* = 0.18)
 F_BEST_RTOL = 1e-9
-ADDED_KEYS = {"ours_crossing_it", "symv_launches", "k_build"}
+ADDED_KEYS = {"ours_crossing_it", "symv_launches", "graph_replays", "k_build"}
 
 # tests/test_bench_scoring.py's cases: ours as (build_s, ts, fs, f_best),
 # the reference as (ts, fs, f_best), and the crossing iteration of ours'

@@ -69,6 +69,47 @@ def test_one_step_from_carried_state_matches(small_problem, l2, after):
         assert _rel_err(got, want) < 1e-9, f
 
 
+def emulated_subproblem(alphas, betas, g_norm, regs, r0, xtol, it_max):
+    """``tridiag_secular`` through the kernel's emulation (numpy), the
+    bits the card's kernel gives."""
+    from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular_emulated
+
+    out = tridiag_secular_emulated(
+        *(t.numpy() for t in (alphas, betas, g_norm, regs, r0)), xtol=xtol,
+        it_max=it_max)
+    return tuple(torch.from_numpy(np.asarray(v)) for v in out)
+
+
+@pytest.mark.parametrize("after", [0, 3])
+def test_one_step_with_the_kernels_subproblem_matches_jax(small_problem,
+                                                          monkeypatch, after):
+    """The step with the subproblem kernel's arithmetic (its emulation in
+    place of the plain eigh and Newton) from the same early fp64 state as
+    the JAX step: every field within 1e-9, solver_it equal."""
+    A, b, x0 = small_problem
+    ja = _jax_solver(A, b, np.float64)
+    st = ja.init_state(jnp.asarray(x0), 0)
+    kw = dict(KW, l2=0.0, reg_ceil=1e6)
+    for _ in range(after):
+        st = jk.gram_krylov_step(ja.gd, st, accum_dtype=jnp.float64, **kw)
+    gd = gram_data_from_numpy(jax.device_get(ja.gd), device=CPU)
+    monkeypatch.setattr(tk, "tridiag_secular", emulated_subproblem)
+    st_t = tk.gram_krylov_step(gd, state_from_numpy(jax.device_get(st),
+                                                    device=CPU),
+                               accum_dtype=torch.float64, **kw)
+    st_j = jax.device_get(jk.gram_krylov_step(ja.gd, st,
+                                              accum_dtype=jnp.float64, **kw))
+    assert int(st_t.solver_it) == int(st_j.solver_it)
+    for f in tk.GramKrylovState._fields:
+        if f in PAIRS.values() or f == "solver_it":
+            continue
+        got, want = getattr(st_t, f).numpy(), getattr(st_j, f)
+        if f in PAIRS:
+            got = got + getattr(st_t, PAIRS[f]).numpy()
+            want = want + getattr(st_j, PAIRS[f])
+        assert _rel_err(got, want) < 1e-9, f
+
+
 @pytest.mark.parametrize("l2", [0.0, 1e-2])
 def test_run_fused_fp64_trace_matches_jax(small_problem, l2):
     A, b, x0 = small_problem
