@@ -34,6 +34,19 @@ Phases (each raises on failure, so the exit code is non-zero):
             torch.cuda.set_sync_debug_mode("error"); wall, device time,
             busy share, host launches and SYMV kernels per step, eager and
             replayed (torch.profiler; SYMV 11 times per replayed step);
+4b. dspace_fused the d-space Krylov step (w8a-like, fp32, m=10, the 21
+            line-search candidates at once) 24 steps eager against 24
+            replays of the captured step, bit for bit, the replays inside
+            sync debug mode "error"; every candidate's value pair against
+            the one-candidate call bit for bit; replays, matvec launches
+            (21 a step, = dense-branch calls) and subproblem launches (one
+            a step) counted; wall, device, busy share, host launch calls
+            and matvec kernels per step, eager and replayed. Then one
+            GramCRN CG solve on phase 4's K from its initial state (shift
+            1e-5): the per-iteration loop, eager blocks and replayed blocks
+            of crn_gram.CG_BLOCK iterations, bit for bit with equal counts,
+            one replay and one host read per block; wall, device, busy and
+            launches per CG iteration for the loop and the replays;
 5. kernel@K the kernel against plain and fp64 on the built K (they differ
             by less than 1e-6 of the fp64 product's norm), and both timed
             with CUDA events (median of 25 chained calls); repeated on
@@ -63,7 +76,9 @@ Phases (each raises on failure, so the exit code is non-zero):
             its fp32 floor: at least one trust-but-verify rollback, after
             each one the verified snapshot's gamma and zeta and the raised
             reg bit for bit, exact values that never rise, and every
-            K-matvec through the SYMV kernel;
+            K-matvec through the SYMV kernel; CG iterations, CG block
+            replays and host reads per iteration printed, every block
+            replayed and fewer host reads than CG iterations;
 7. matvec   the dense matvec kernel against its plain version and an fp64
             product, fp32 and bf16 K at (20480, 20480), (20224, 20224), the
             (5120, 20480)
@@ -81,8 +96,10 @@ Phases (each raises on failure, so the exit code is non-zero):
             package's recorded fp64 optimum within 1e-11. Requires a final
             gap <= 1e-9 for both, a loss trace that never rises by more
             than 1e-12 (fp64 re-evaluation of fp32 iterates that differ by
-            rounding), and every dense-branch product on the card launched
-            through the matvec kernel. The oracle's best fp32 value
+            rounding), every dense-branch product on the card launched
+            through the matvec kernel, and every CubicKrylov step a replay
+            of its captured graph (graph replays = iterations, one
+            subproblem launch a step). The oracle's best fp32 value
             reading must lie within one fp32 ulp of f*; its offset is
             printed with its parts (iterate, fp32 margins, fp32 terms),
             and scaling and summing the terms may move it by 1e-9 at most;
@@ -90,16 +107,21 @@ Phases (each raises on failure, so the exit code is non-zero):
             iterations in fp32 on the card, twice (the two runs must agree
             bitwise), against the port's fp64 CPU run of the same 10
             iterations: the fp64-evaluated loss of the last iterate within
-            1e-6 relative;
+            1e-6 relative. The CSR products make no host read after their
+            first call (sync debug mode "error": index_select,
+            segment_reduce, spmv_csr), so every card step is a replay
+            (20 replays, 2 captures, 22 subproblem launches), and the
+            replayed run equals 10 eager steps bit for bit;
 10. measure the ported tools/measure_matvec.py rows at n = 20480;
 11. cli_gram the port's CLI run grid (cli.run_grid) on the rcv1-like stand-in
             at full width, fp32 on the card: GramCRN (tolerance 1e-8), SSCN
             m=500 and GramKrylov run_fused, 12 iterations each. Requires
             GramCRN's certified exact gap (against phase 4's f*) <= 1e-8
             within 12 iterations, exact values that never increase, and
-            every K-matvec on the card launched through the SYMV kernel;
-            prints GramCRN's seconds, CG iterations, host reads and
-            rollbacks per iteration, and SSCN's gap beside the JAX
+            every K-matvec on the card launched through the SYMV kernel,
+            and GramCRN's CG in replayed blocks (fewer host reads than CG
+            iterations); prints GramCRN's seconds, CG iterations, block
+            replays, host reads and rollbacks per iteration, and SSCN's gap beside the JAX
             package's m=500 curve (printed, not gated: other coordinates);
 12. sscn    SSCN m=500 on rcv1-like (CSR data, column panels) for 20
             iterations: fp32 on the card twice and fp64 on the CPU, one
@@ -109,8 +131,8 @@ Phases (each raises on failure, so the exit code is non-zero):
 13. cli_dense cli.run_grid on the w8a-like stand-in (d-space path): CRN
             "full", SSCN m=10 and CubicKrylov, 20 iterations. Requires every
             dense-branch product on the card launched through the matvec
-            kernel and CRN's final fp64 gap <= 1e-9 against the JAX
-            package's optimum;
+            kernel, every CubicKrylov step replayed, and CRN's final fp64
+            gap <= 1e-9 against the JAX package's optimum;
 14. news20  phase 4's protocol and gates on the news20-like stand-in
             (19,996 x 1,355,191, 8.7M nnz, 22 build panels): generation,
             build and race seconds, crossing iteration, final gap, chunks,
@@ -197,8 +219,9 @@ The kernel records count the launches of every phase that drives a
 solver (each phase resets the counts just before and reads them just
 after; phase bench's process counts its own, per race). The subproblem
 kernel's record, ``tridiag_secular``, counts the Gram races of phases
-main, bf16_head, cli_gram, news20 and figure2 (one launch per step: a
-capture's eager warm-up step, or a replay). The matvec
+main, bf16_head, cli_gram, news20 and figure2 and the d-space Krylov
+steps of phases dense, sparse, cli_dense and figure2 (one launch per
+step: a capture's eager warm-up step, a replay, or an eager CSR step). The matvec
 kernel has a record for each shape a path launches it at, its launches
 there beside its times at that shape: w8a-like's A
 (49749, 300) and A^T (300, 49749) on the d-space paths (counted by shape,
@@ -668,10 +691,11 @@ def _subproblem_close(host, got, want, xtol, it_max):
     return worst
 
 
-def _profile_steps(fn, steps):
+def _profile_steps(fn, steps, kernel="symv_upper_tiles"):
     """Per step of ``fn()`` (``steps`` steps) under torch.profiler: device
-    ms (every kernel, copy and fill), device kernels, SYMV kernels and
-    host launch calls (kernels, graphs, copies, fills)."""
+    ms (every kernel, copy and fill), device kernels, kernels whose name
+    holds ``kernel`` (``named``) and host launch calls (kernels, graphs,
+    copies, fills)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -681,20 +705,20 @@ def _profile_steps(fn, steps):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device_us = kernels = symv_k = launches = 0
+    device_us = kernels = named = launches = 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:  # a kernel, copy or fill
             device_us += getattr(ev, "self_device_time_total",
                                  getattr(ev, "self_cuda_time_total", 0))
             kernels += ev.count
-            if "symv_upper_tiles" in ev.key:
-                symv_k += ev.count
+            if kernel in ev.key:
+                named += ev.count
         elif ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaGraphLaunch", "cudaMemcpyAsync",
                                 "cudaMemsetAsync")):
             launches += ev.count
     return dict(device_ms=device_us / 1e3 / steps, kernels=kernels / steps,
-                symv=symv_k / steps, launches=launches / steps)
+                named=named / steps, launches=launches / steps)
 
 
 def phase_fused(dev, alg):
@@ -855,13 +879,230 @@ def phase_fused(dev, alg):
         print(f"fused: {name} step: wall {walls[name]} ms, device "
               f"{p['device_ms']:.3f} ms, busy {p['device_ms'] / w:.1%}, "
               f"host launches {p['launches']:.1f}, device kernels "
-              f"{p['kernels']:.1f}, symv_upper {p['symv']:.1f}")
-    if prof["replayed"]["symv"] != 11 or prof["eager"]["symv"] != 11:
-        raise RuntimeError(f"fused: {prof['replayed']['symv']} SYMV "
+              f"{p['kernels']:.1f}, symv_upper {p['named']:.1f}")
+    if prof["replayed"]["named"] != 11 or prof["eager"]["named"] != 11:
+        raise RuntimeError(f"fused: {prof['replayed']['named']} SYMV "
                            f"kernels per replayed step, "
-                           f"{prof['eager']['symv']} per eager step (want "
+                           f"{prof['eager']['named']} per eager step (want "
                            "11)")
     del fresh, graphs, entry
+    torch.cuda.empty_cache()
+    return out
+
+
+DSPACE_STEPS = 24  # steps of the d-space step eager against replayed
+
+
+def _cg_loop(gd, matvec, b, rtol, maxiter, adt):
+    """CG over reps reading its stopping flag every iteration (the loop
+    the blocked solve replaced, as the JAX package's ``while_loop`` runs
+    it): the reference for ``crn_gram``'s blocks. Returns (x, its)."""
+    import torch
+
+    from krylov_crn_tpu_torch.ops.gram import Rep, rep_axpy, rep_dot
+
+    cdt = b.w.dtype
+    dot = lambda u, v: rep_dot(gd, u, v, adt)
+    bnorm2 = dot(b, b)
+    tol2 = (rtol * rtol) * bnorm2
+    z = torch.zeros(b.w.shape[0], dtype=cdt, device=b.w.device)
+    x = Rep(torch.zeros((), dtype=cdt, device=b.w.device), z, z)
+    r = p = b
+    gamma, it = bnorm2, 0
+    while it < maxiter and bool(gamma > tol2):
+        Ap = matvec(p)
+        alpha = (gamma / dot(p, Ap)).to(cdt)
+        x = rep_axpy(x, alpha, p)
+        r = rep_axpy(r, -alpha, Ap)
+        gamma_new = dot(r, r)
+        beta = (gamma_new / gamma).to(cdt)
+        p = Rep(r.beta + beta * p.beta, r.w + beta * p.w, r.u + beta * p.u)
+        gamma = gamma_new
+        it += 1
+    return x, it
+
+
+def _wall_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_dspace_fused(dev, alg):
+    """The d-space Krylov step and a GramCRN CG solve without host round
+    trips (see the module's docstring, phase 4b); ``alg`` is phase main's
+    GramKrylov, whose K and initial state the CG solve starts from."""
+    import torch
+
+    from krylov_crn_tpu_torch import CubicKrylov, GramCRN, LogisticRegression
+    from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
+    from krylov_crn_tpu_torch.models.logistic import (
+        logreg_value_from_margins,
+        value_args,
+    )
+    from krylov_crn_tpu_torch.ops.gram import Rep, rep_axpy
+    from krylov_crn_tpu_torch.solvers import crn_gram as cg
+    from krylov_crn_tpu_torch.solvers import krylov_crn as kc
+
+    out = {}
+    # ---- the d-space step on w8a-like, 24 steps eager against replayed ----
+    A, b = synthetic_logreg("w8a-like", seed=0)
+    loss = LogisticRegression(A, b, dtype=np.float32, device=dev)
+    kry = CubicKrylov(loss=loss, reg_coef=1e-3, subspace_dim=10,
+                      tolerance=0)
+    kry.init_run(np.ones(A.shape[1]) * 0.5, 42)
+    data, bt, st0, kw = loss.data, loss.b_t, kry.state, kry._step_kwargs()
+
+    def steps(step, k):
+        st, rows = st0, []
+        for _ in range(k):
+            st = step(st)
+            rows.append(st)
+        return rows
+
+    eager_step = lambda st: kc.krylov_step(data, bt, st, **kw)
+    graphs = kc._StepGraphs(dev)
+    replay_step = lambda st: graphs.step(data, bt, st, kw)
+    seen = []
+    trials = kc._trials
+
+    def record(*a, **k):
+        seen.append(trials(*a, **k))
+        return seen[-1]
+
+    kc._trials = record
+    try:
+        eager = steps(eager_step, DSPACE_STEPS)
+    finally:
+        kc._trials = trials
+    # every candidate's value pair against the one-candidate call
+    vkw = value_args(data)
+    rows_differ = sum(
+        not (torch.equal(t.vhis[k], hi) and torch.equal(t.vlos[k], lo))
+        for t, st in zip(seen, [st0] + eager[:-1])
+        for k in range(t.vhis.shape[0])
+        for hi, lo in [logreg_value_from_margins(bt, t.Axs[k], st.x,
+                                                 **vkw)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay_step(st0)  # the capture (its warm-up step included) and a replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = steps(replay_step, DSPACE_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    cnt = _counts()
+    differ = [(i, f) for i, (e, r) in enumerate(zip(eager, replayed), 1)
+              for f in kc.KrylovState._fields
+              if not torch.equal(getattr(e, f), getattr(r, f))]
+    print(f"dspace_fused: w8a-like {A.shape}, m 10, L {kw['ls_max'] + 1}: "
+          f"capture {capture_s:.3f} s; {DSPACE_STEPS} steps replayed inside "
+          f"sync debug mode 'error' against eager: "
+          f"{'bit for bit' if not differ else f'differ at {differ[:6]}'}; "
+          f"candidate value rows unlike the one-candidate call {rows_differ}"
+          f" of {sum(t.vhis.shape[0] for t in seen)}; replays "
+          f"{cnt['krylov_replays']}, matvec launches {cnt['matvec']} = "
+          f"dense-branch calls {cnt['dense_calls']}, subproblem launches "
+          f"{cnt['subproblem']}; solver_it {int(replayed[-1].solver_it)}")
+    if differ:
+        raise RuntimeError(f"dspace_fused: replayed steps differ from the "
+                           f"eager ones: {differ[:6]}")
+    if rows_differ:
+        raise RuntimeError(f"dspace_fused: {rows_differ} candidate values "
+                           "differ from the one-candidate call")
+    if not (cnt["krylov_replays"] == DSPACE_STEPS
+            and cnt["matvec"] == cnt["dense_calls"] == 21 * DSPACE_STEPS
+            and cnt["subproblem"] == DSPACE_STEPS):
+        raise RuntimeError(f"dspace_fused: counts {cnt}")
+    walls = {"eager": [], "replayed": []}
+    for name in ("replayed", "eager", "eager", "replayed"):
+        step = replay_step if name == "replayed" else eager_step
+        walls[name].append(_wall_ms(lambda: steps(step, DSPACE_STEPS))
+                           / DSPACE_STEPS)
+    prof = {"replayed": _profile_steps(
+                lambda: steps(replay_step, DSPACE_STEPS), DSPACE_STEPS,
+                "matvec_stream"),
+            "eager": _profile_steps(lambda: steps(eager_step, 4), 4,
+                                    "matvec_stream")}
+    for name in ("eager", "replayed"):
+        p, w = prof[name], min(walls[name])
+        out[name] = dict(p, wall_ms=w, wall_ms_runs=walls[name],
+                         busy=p["device_ms"] / w)
+        print(f"dspace_fused: {name} step: wall {walls[name]} ms, device "
+              f"{p['device_ms']:.3f} ms, busy {p['device_ms'] / w:.1%}, "
+              f"host launches {p['launches']:.1f}, device kernels "
+              f"{p['kernels']:.1f}, matvec_stream {p['named']:.1f}")
+    if prof["replayed"]["named"] != 21 or prof["eager"]["named"] != 21:
+        raise RuntimeError(f"dspace_fused: {prof['replayed']['named']} / "
+                           f"{prof['eager']['named']} matvec kernels per "
+                           "replayed / eager step (want 21)")
+    out.update(capture_s=capture_s, steps=DSPACE_STEPS,
+               solver_it=int(replayed[-1].solver_it))
+    del graphs, eager, replayed, seen
+
+    # ---- one GramCRN CG solve on rcv1-like: blocks against the loop ----
+    crn = GramCRN(loss=alg.loss, reg_coef=1e-3, tolerance=0, device=dev,
+                  gram_data=alg.gd)
+    crn.init_run(alg._x0_host, 42)
+    gd, l2, adt = crn.gd, crn.loss.l2, torch.float32
+    g, _, D, _, _ = cg._grad_probe(gd, crn.state, l2, adt)
+    rhs = Rep(-g.beta, -g.w, -g.u)
+    # a shift GramCRN's Newton reaches near the optimum (72 iterations in
+    # fp32 on the CPU; 0.1, the first Newton's, takes 4)
+    lam_c = torch.full((), 1e-5, dtype=adt, device=dev)
+    hop = cg._hop(gd, D, l2)
+    mv = lambda v: rep_axpy(hop(v), lam_c, v)
+    eps, maxiter = crn.solver_eps, crn.cg_maxiter
+    loop = lambda: _cg_loop(gd, mv, rhs, eps, maxiter, adt)
+    cgg = cg._CGGraphs(dev)
+    blocks = lambda: cgg.solve(gd, D, rhs, lam_c, l2, eps, maxiter, adt)
+    s_loop, it_loop = loop()
+    s_eager, it_eager = cg.cg_rep(gd, mv, rhs, eps, maxiter, adt)
+    blocks()  # the capture
+    reads0, replays0 = cg.host_read.count, cg.cg_rep.block_replays
+    s_blk, it_blk = blocks()
+    reads = cg.host_read.count - reads0
+    replays = cg.cg_rep.block_replays - replays0
+    same = lambda u, v: all(torch.equal(a, c) for a, c in zip(u, v))
+    want_blocks = -(-it_loop // cg.CG_BLOCK)
+    print(f"cg_blocks: rcv1-like CG solve (lam 1e-5, rtol {eps}): loop "
+          f"{it_loop} iterations, eager blocks {it_eager}, replayed blocks "
+          f"{it_blk}; bit for bit: eager {same(s_eager, s_loop)}, replayed "
+          f"{same(s_blk, s_loop)}; {replays} block replays, {reads} host "
+          f"reads (block {cg.CG_BLOCK})")
+    if not (it_loop == it_eager == it_blk and same(s_eager, s_loop)
+            and same(s_blk, s_loop)):
+        raise RuntimeError("cg_blocks: the blocked solve differs from the "
+                           "loop")
+    if not (replays == reads == want_blocks):
+        raise RuntimeError(f"cg_blocks: {replays} replays and {reads} reads "
+                           f"for {want_blocks} blocks")
+    cwalls = {"loop": [], "replayed": []}
+    for name in ("replayed", "loop", "loop", "replayed"):
+        cwalls[name].append(_wall_ms(blocks if name == "replayed" else loop)
+                            / it_loop)
+    cprof = {"replayed": _profile_steps(blocks, it_loop),
+             "loop": _profile_steps(loop, it_loop)}
+    out["cg"] = dict(iterations=it_loop, block=cg.CG_BLOCK, replays=replays,
+                     host_reads=reads)
+    for name in ("loop", "replayed"):
+        p, w = cprof[name], min(cwalls[name])
+        out["cg"][name] = dict(p, wall_ms=w, wall_ms_runs=cwalls[name],
+                               busy=p["device_ms"] / w)
+        print(f"cg_blocks: {name}, per CG iteration: wall {cwalls[name]} "
+              f"ms, device {p['device_ms']:.3f} ms, busy "
+              f"{p['device_ms'] / w:.1%}, host launches "
+              f"{p['launches']:.2f}, device kernels {p['kernels']:.1f}, "
+              f"symv_upper {p['named']:.2f}")
+    del cgg, crn
     torch.cuda.empty_cache()
     return out
 
@@ -1178,8 +1419,9 @@ def phase_rollback(dev):
           f"rollbacks at iterations {rb}; restored bitwise "
           f"{[c['restored'] for c in checks]}; exact values "
           f"{[f - fs[-1] for f in fs]} above the last; CG iterations "
-          f"{m['cg_its']}; symv launches {cnt['symv']}, k_matvec calls on "
-          f"the card {cnt['kmatvec_calls']}")
+          f"{m['cg_its']}, CG block replays {m['cg_replays']}, host reads "
+          f"{m['host_reads']} per iteration; symv launches {cnt['symv']}, "
+          f"k_matvec calls on the card {cnt['kmatvec_calls']}")
     if not rb:
         raise RuntimeError("rollback: GramCRN never rolled back")
     if not (len(checks) == len(rb) and all(c["restored"] for c in checks)):
@@ -1189,10 +1431,29 @@ def phase_rollback(dev):
         raise RuntimeError(f"rollback: exact values increased: {fs}")
     if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
         raise RuntimeError("rollback: K-matvecs bypassed the kernel")
+    _cg_replayed("rollback", m, cnt)
     return dict(seconds=secs, rollback_its=list(rb),
                 restored=[c["restored"] for c in checks], exact_fs=fs,
-                cg_its=list(m["cg_its"]), launches=cnt["symv"],
+                cg_its=list(m["cg_its"]), cg_replays=list(m["cg_replays"]),
+                host_reads=list(m["host_reads"]), launches=cnt["symv"],
                 kmatvec_calls=cnt["kmatvec_calls"])
+
+
+def _cg_replayed(tag, m, cnt):
+    """GramCRN's CG ran in replayed blocks: a replay for every block, at
+    most CG_BLOCK iterations each, and fewer host reads than CG
+    iterations."""
+    from krylov_crn_tpu_torch.solvers.crn_gram import CG_BLOCK
+
+    its, reps, reads = (sum(m[k]) for k in ("cg_its", "cg_replays",
+                                            "host_reads"))
+    print(f"{tag}: GramCRN CG {its} iterations in {reps} replayed blocks of "
+          f"{CG_BLOCK} ({cnt['cg_captures']} captures), {reads} host reads "
+          f"({reads / max(its, 1):.3f} per CG iteration)")
+    if not (reps == cnt["cg_replays"] and its / CG_BLOCK <= reps < its
+            and reads < its):
+        raise RuntimeError(f"{tag}: GramCRN's CG ran {its} iterations in "
+                           f"{reps} replays with {reads} host reads")
 
 
 def phase_matvec(dev):
@@ -1345,14 +1606,26 @@ def phase_dense(dev):
                           exact_fs=fs)
     cnt = _counts()
     launches, calls = cnt["matvec"], cnt["dense_calls"]
+    kry_its = out["krylov"]["iterations"]
     print(f"dense: matvec launches {launches} ({cnt['matvec_shapes']}), "
-          f"dense-branch products on the card {calls}, symv launches "
-          f"{cnt['symv']}")
+          f"dense-branch products on the card {calls} (replays counted), "
+          f"symv launches {cnt['symv']}; CubicKrylov graph replays "
+          f"{cnt['krylov_replays']} for {kry_its} iterations (captures "
+          f"{cnt['krylov_captures']}), "
+          f"subproblem launches {cnt['subproblem']}")
     if not (launches == calls and launches > 0):
         raise RuntimeError(f"dense products bypassed the kernel: {launches} "
                            f"launches vs {calls} calls")
+    # one launch a step: a capture's eager warm-up step, or a replay
+    if not (cnt["krylov_replays"] == kry_its
+            and cnt["subproblem"] == kry_its + cnt["krylov_captures"]):
+        raise RuntimeError(f"dense: {cnt['krylov_replays']} replays and "
+                           f"{cnt['subproblem']} subproblem launches for "
+                           f"{kry_its} CubicKrylov steps")
     out.update(launches=launches, dense_calls=calls,
                matvec_shapes=cnt["matvec_shapes"],
+               graph_replays=cnt["krylov_replays"],
+               subproblem_launches=cnt["subproblem"],
                reading_offset=_reading_offset("dense", float(loss.f_opt),
                                               f_star),
                reading_parts=_reading_parts(loss, A, b, f_star))
@@ -1361,16 +1634,41 @@ def phase_dense(dev):
 
 def phase_sparse(dev):
     """CubicKrylov on rcv1-like through the CSR branch: fp32 on the card
-    (twice) against fp64 on the CPU, 10 iterations."""
+    (twice, replayed) against fp64 on the CPU and against eager steps on
+    the card, 10 iterations."""
     import torch
 
     from krylov_crn_tpu_torch import CubicKrylov, LogisticRegression
     from krylov_crn_tpu_torch.data.synthetic import synthetic_logreg
-    from krylov_crn_tpu_torch.ops.spmv import dense_matvec
+    from krylov_crn_tpu_torch.ops.spmv import spmv_csr
+    from krylov_crn_tpu_torch.solvers import krylov_crn as kc
 
     A, b = synthetic_logreg("rcv1-like", seed=0)
     x0 = np.ones(A.shape[1]) * 0.5
-    dense_matvec.cuda_calls = 0
+    # a CSR product's host reads once set up (the capture's warm-up step
+    # makes its first call): the branch replays only if there are none
+    M = LogisticRegression(A, b, dtype=np.float32, device=dev).data.a
+    v = torch.rand(A.shape[1], device=dev)
+    prod = M.values() * v.index_select(0, M.col_indices())
+    reads = {}
+    for name, fn in (
+            ("index_select", lambda: v.index_select(0, M.col_indices())),
+            ("segment_reduce", lambda: torch.segment_reduce(
+                prod, "sum", offsets=M.crow_indices())),
+            ("spmv_csr", lambda: spmv_csr(M, v))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            reads[name] = False
+        except RuntimeError:
+            reads[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print(f"sparse: reads the host under sync debug mode 'error' (after a "
+          f"first call): {reads}")
+    _reset_counts()
     runs = {}
     for key, dtype, device in (("f64_cpu", np.float64, "cpu"),
                                ("f32_card", np.float32, dev),
@@ -1384,26 +1682,43 @@ def phase_sparse(dev):
                          f=_iterates_f64(A, b, tr)[-1])
         print(f"sparse {key}: 10 iterations in {secs:.3f} s, fp64 loss of "
               f"the last iterate {runs[key]['f']:.17g}")
+    cnt = _counts()
+    # the replayed run against eager steps from the same initial state
+    st = kc.initial_state(loss, x0, 1e-3, kc.KrylovState)
+    kw = alg._step_kwargs()
+    for _ in range(10):
+        st = kc.krylov_step(loss.data, loss.b_t, st, **kw)
+    eager_same = torch.equal(st.x, runs["f32_card_again"]["x"])
     same = torch.equal(runs["f32_card"]["x"], runs["f32_card_again"]["x"])
     f64, f32 = runs["f64_cpu"]["f"], runs["f32_card"]["f"]
     rel = abs(f32 - f64) / abs(f64)
     # cuSPARSE's CSR product (not used by the port), for the record
-    Ad = LogisticRegression(A, b, dtype=np.float32, device=dev).data.a
-    v = torch.rand(A.shape[1], device=dev)
-    ys = [Ad @ v for _ in range(20)]
+    ys = [M @ v for _ in range(20)]
     cusparse_same = all(torch.equal(ys[0], y) for y in ys)
     print(f"sparse: fp32 card vs fp64 CPU, relative {rel:.3e}; two card runs "
-          f"bitwise equal: {same}; dense products {dense_matvec.cuda_calls}; "
-          f"cuSPARSE CSR @ bitwise equal over 20 calls: {cusparse_same}")
-    if not same:
-        raise RuntimeError("two fp32 card runs of the CSR path differ")
-    if dense_matvec.cuda_calls:
+          f"bitwise equal: {same}; replayed equal to 10 eager steps: "
+          f"{eager_same}; dense products {cnt['dense_calls']}; cuSPARSE "
+          f"CSR @ bitwise equal over 20 calls: {cusparse_same}; CubicKrylov "
+          f"graph replays {cnt['krylov_replays']} (captures "
+          f"{cnt['krylov_captures']}), subproblem launches "
+          f"{cnt['subproblem']}")
+    if not (same and eager_same):
+        raise RuntimeError("fp32 card runs of the CSR path differ")
+    if cnt["dense_calls"]:
         raise RuntimeError("the CSR path ran dense products")
+    if any(reads.values()) or not (
+            cnt["krylov_replays"] == 20 and cnt["krylov_captures"] == 2
+            and cnt["subproblem"] == 22):
+        raise RuntimeError(f"sparse: the CSR step's path: host reads "
+                           f"{reads}, {cnt['krylov_replays']} replays, "
+                           f"{cnt['krylov_captures']} captures")
     if not rel <= SPARSE_REL_TOL:
         raise RuntimeError(f"sparse: fp32 card loss {f32!r} vs fp64 CPU "
                            f"{f64!r}: relative {rel:.3e}")
     return dict(f64_cpu=f64, f32_card=f32, rel=rel, runs_equal=same,
-                cusparse_repeatable=cusparse_same,
+                eager_equal=eager_same, cusparse_repeatable=cusparse_same,
+                host_reads=reads, graph_replays=cnt["krylov_replays"],
+                subproblem_launches=cnt["subproblem"],
                 seconds={k: r["seconds"] for k, r in runs.items()})
 
 
@@ -1423,6 +1738,8 @@ def _reset_counts():
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.crn_gram import cg_rep
+    from krylov_crn_tpu_torch.solvers.krylov_crn import krylov_step
     from krylov_crn_tpu_torch.solvers.krylov_gram import (
         _lr_matvec,
         gram_krylov_step,
@@ -1433,6 +1750,8 @@ def _reset_counts():
     matvec.shape_launches.clear()
     tridiag_secular.launches = 0
     gram_krylov_step.graph_captures = gram_krylov_step.graph_replays = 0
+    krylov_step.graph_captures = krylov_step.graph_replays = 0
+    cg_rep.block_replays = cg_rep.graph_captures = cg_rep.iterations = 0
 
 
 def _counts():
@@ -1441,6 +1760,8 @@ def _counts():
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
     from krylov_crn_tpu_torch.ops.symv import symv
+    from krylov_crn_tpu_torch.solvers.crn_gram import cg_rep
+    from krylov_crn_tpu_torch.solvers.krylov_crn import krylov_step
     from krylov_crn_tpu_torch.solvers.krylov_gram import (
         _lr_matvec,
         gram_krylov_step,
@@ -1453,7 +1774,12 @@ def _counts():
                                in matvec.shape_launches.items()},
                 subproblem=tridiag_secular.launches,
                 graph_captures=gram_krylov_step.graph_captures,
-                graph_replays=gram_krylov_step.graph_replays)
+                graph_replays=gram_krylov_step.graph_replays,
+                krylov_captures=krylov_step.graph_captures,
+                krylov_replays=krylov_step.graph_replays,
+                cg_captures=cg_rep.graph_captures,
+                cg_replays=cg_rep.block_replays,
+                cg_its=cg_rep.iterations)
 
 
 def _jax_sscn_curve(m):
@@ -1503,10 +1829,12 @@ def phase_cli_gram(f_star):
     it_to_t = dict(zip(crn.trace.its, ts))
     it_secs = [it_to_t.get(i, np.nan) - it_to_t.get(i - 1, np.nan)
                for i in range(1, crn.it + 1)]
-    for i, (g, cg, rd) in enumerate(zip(gaps, m["cg_its"],
-                                        m["host_reads"]), 1):
+    for i, (g, cg, rp, rd) in enumerate(zip(gaps, m["cg_its"],
+                                            m["cg_replays"],
+                                            m["host_reads"]), 1):
         print(f"cli_gram: GramCRN it {i}: {it_secs[i - 1]:.3f} s, exact gap "
-              f"{g:.3e}, CG iterations {cg}, host reads {rd}")
+              f"{g:.3e}, CG iterations {cg}, CG block replays {rp}, host "
+              f"reads {rd}")
     print(f"cli_gram: GramCRN crossing at iteration {cross}; final gap "
           f"{gaps[-1]:.3e}; rollbacks {m.get('rollback_its', [])}; "
           f"solver_it {int(crn.state.solver_it)}")
@@ -1530,6 +1858,7 @@ def phase_cli_gram(f_star):
     if not cnt["graph_replays"] >= kry.it > 0:
         raise RuntimeError(f"cli_gram: GramKrylov replayed "
                            f"{cnt['graph_replays']} steps of {kry.it}")
+    _cg_replayed("cli_gram", m, cnt)
     if not (cnt["symv"] == cnt["kmatvec_calls"] and cnt["symv"] > 0):
         raise RuntimeError(f"cli_gram: K-matvecs bypassed the kernel: "
                            f"{cnt['symv']} launches vs "
@@ -1544,7 +1873,8 @@ def phase_cli_gram(f_star):
     return dict(seconds=secs, crn_iterations=crn.it, crn_seconds=ts[-1],
                 crn_s_per_it=per_it, crn_it_seconds=it_secs,
                 crossing_it=cross, exact_gaps=gaps,
-                cg_its=list(m["cg_its"]), host_reads=list(m["host_reads"]),
+                cg_its=list(m["cg_its"]), cg_replays=list(m["cg_replays"]),
+                host_reads=list(m["host_reads"]),
                 rollback_its=list(m.get("rollback_its", [])),
                 sscn_gap=s_gap, sscn_jax_gap=jax_gap,
                 sscn_seconds=sscn.trace.ts[-1], f_opt=grid.f_opt,
@@ -1589,6 +1919,7 @@ def phase_sscn(dev):
               f"({secs / SSCN_ITS * 1e3:.1f} ms per step), solver_it "
               f"{runs[key]['solver_it']}, fp64 loss of the last iterate "
               f"{f:.17g}")
+    cnt = _counts()
     cnt = _counts()
     same = torch.equal(runs["f32_card"]["x"], runs["f32_card_again"]["x"])
     f64, f32 = runs["f64_cpu"]["f"], runs["f32_card"]["f"]
@@ -1635,11 +1966,17 @@ def phase_cli_dense():
               f"{alg.trace.ts[-1]:.3f} s, final fp64 gap {gaps[name]:.3e}")
     print(f"cli_dense: run_grid {secs:.3f} s; matvec launches "
           f"{cnt['matvec']}, dense-branch products on the card "
-          f"{cnt['dense_calls']}, symv launches {cnt['symv']}")
+          f"{cnt['dense_calls']}, symv launches {cnt['symv']}; CubicKrylov "
+          f"graph replays {cnt['krylov_replays']} for {grid.krylov.it} "
+          f"iterations, subproblem launches {cnt['subproblem']}")
     if not (cnt["matvec"] == cnt["dense_calls"] and cnt["matvec"] > 0):
         raise RuntimeError(f"cli_dense: dense products bypassed the kernel: "
                            f"{cnt['matvec']} launches vs "
                            f"{cnt['dense_calls']} calls")
+    if not (cnt["krylov_replays"] == grid.krylov.it
+            and cnt["subproblem"] == grid.krylov.it + cnt["krylov_captures"]):
+        raise RuntimeError(f"cli_dense: {cnt['krylov_replays']} replays for "
+                           f"{grid.krylov.it} CubicKrylov steps")
     if not gaps["crn"] <= DSPACE_GAP:
         raise RuntimeError(f"cli_dense: CRN final gap {gaps['crn']:.3e} "
                            f"above {DSPACE_GAP}")
@@ -1647,7 +1984,9 @@ def phase_cli_dense():
         raise RuntimeError(f"cli_dense: non-finite gaps {gaps}")
     return dict(seconds=secs, gaps=gaps, launches=cnt["matvec"],
                 dense_calls=cnt["dense_calls"],
-                matvec_shapes=cnt["matvec_shapes"])
+                matvec_shapes=cnt["matvec_shapes"],
+                graph_replays=cnt["krylov_replays"],
+                subproblem_launches=cnt["subproblem"])
 
 
 def phase_skew(dev):
@@ -1805,10 +2144,17 @@ def phase_figure2(news20_alg):
               f"(the JAX package's {W8A_F_STAR:.17g}); final gaps {gaps}; "
               f"iterations { {a: c['its'][-1] for a, c in curves.items()} }; "
               f"matvec launches {cnt['matvec']}, dense-branch products on "
-              f"the card {cnt['dense_calls']}")
+              f"the card {cnt['dense_calls']}; CubicKrylov graph replays "
+              f"{cnt['krylov_replays']} (captures {cnt['krylov_captures']}),"
+              f" subproblem launches {cnt['subproblem']}")
         if not (cnt["matvec"] == cnt["dense_calls"] and cnt["matvec"] > 0):
             raise RuntimeError("figure2 w8a-like: dense products bypassed "
                                "the kernel")
+        if not (cnt["krylov_replays"] > 0
+                and cnt["subproblem"] == cnt["krylov_replays"]
+                + cnt["krylov_captures"]):
+            raise RuntimeError("figure2 w8a-like: CubicKrylov steps ran "
+                               "eagerly")
         for alg in ("CRN", "Krylov CRN (m=10)"):
             if not gaps[alg] <= DSPACE_GAP:
                 raise RuntimeError(f"figure2 w8a-like: {alg} final gap "
@@ -1818,6 +2164,8 @@ def phase_figure2(news20_alg):
                          matvec_launches=cnt["matvec"],
                          matvec_shapes=cnt["matvec_shapes"],
                          dense_calls=cnt["dense_calls"],
+                         graph_replays=cnt["krylov_replays"],
+                         subproblem_launches=cnt["subproblem"],
                          ts={a: c["ts"][-1] for a, c in curves.items()})
 
         # ---- news20-like: GramKrylov m=10 (SYMV) and SSCN m=1000
@@ -2331,6 +2679,7 @@ def main(argv=None):
               "kernel": phase_kernel(dev)}
     alg, record["main"] = phase_main(dev)
     record["fused"] = phase_fused(dev, alg)
+    record["dspace_fused"] = phase_dspace_fused(dev, alg)
     record["kernel_on_K"] = phase_kernel_on_K(dev, alg.gd.K)
     record["bf16_head"] = {"rcv1-like": phase_bf16_head(
         dev, "main", alg, record["main"], BF16_HEAD_ITS["rcv1-like"])}
@@ -2446,7 +2795,11 @@ def main(argv=None):
                      + record["cli_gram"]["subproblem_launches"]
                      + fig["news20-like"]["subproblem_launches"]
                      + sum(h["subproblem_launches"]
-                           for h in record["bf16_head"].values())),
+                           for h in record["bf16_head"].values())
+                     + record["dense"]["subproblem_launches"]
+                     + record["sparse"]["subproblem_launches"]
+                     + record["cli_dense"]["subproblem_launches"]
+                     + fig["w8a-like"]["subproblem_launches"]),
         "max_abs_err": record["fused"]["worst"]["abs_err"],
         "ms": record["fused"]["ms"], "plain_ms": record["fused"]["plain_ms"],
         "bound_ms": record["fused"]["bound_ms"],

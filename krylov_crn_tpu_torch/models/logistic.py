@@ -93,10 +93,12 @@ def value_args(data) -> dict:
 
 
 def _fold_pairs(mesh, hi, lo):
-    """The sum of every rank's two-float pair: one all-gather of the
-    pairs, then a two-sum fold in rank order, the same arithmetic on the
-    same bytes on every rank."""
-    pairs = all_gather_rows(mesh, torch.stack([hi, lo]).reshape(1, 2))
+    """The sum of every rank's two-float pairs (0-d, or one per
+    candidate): one all-gather of all the pairs, then a two-sum fold in
+    rank order, the same arithmetic on the same bytes on every rank, and
+    for each candidate the arithmetic of a one-pair fold."""
+    pairs = all_gather_rows(mesh, torch.stack([hi, lo]).reshape(1, -1))
+    pairs = pairs.reshape(pairs.shape[0], 2, *hi.shape)
     hi, lo = pairs[0, 0], pairs[0, 1]
     for r in range(1, pairs.shape[0]):
         hi, e = two_sum(hi, pairs[r, 0])
@@ -110,6 +112,10 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
     scaled by 1/n before the reduction, so per-term rounding enters at
     eps*|term|/n; in fp64 the pair is a compensated fp64 sum.
 
+    Margins of shape (L, n) and iterates of shape (L, d) give the L
+    candidates' pairs, shape (L,), in one pass: every fold acts on the
+    last axis, row by row.
+
     ``mask`` and ``n`` handle padded sharded rows (padding would otherwise
     add -logsig(0) = log 2 each; ``n`` is the global row count, never the
     block's). With a ``mesh`` of several ranks the margins are this rank's
@@ -119,7 +125,7 @@ def logreg_value_from_margins(b, Ax, x, l2: float = 0.0, mask=None,
     if mask is not None:
         terms = terms * mask
     if n is None:
-        n = Ax.shape[0]
+        n = Ax.shape[-1]
     # divided truly, unlike the JAX package's product (over_n): a value
     # reading is held against f*, and the product would scale every term
     # by fl(1/n) * n

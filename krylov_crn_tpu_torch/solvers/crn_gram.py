@@ -6,12 +6,19 @@ CRN (cubic.py:152-182), secular Newton x CG x SpMV, with rep-space vectors
 kernel on a card, and every inner product is closed form.
 
 The JAX structure stays: the secular Newton and the backtracking line
-search run on the host, the device does one CG solve per call. The CG
-loop reads its stopping flag (``gamma > tol2``) once per iteration, so the
-iteration counts are the JAX package's in fp64. ``host_read.count``
-counts every device-to-host read this module makes and
-``cg_rep.iterations`` every CG iteration, so a run can report both per
-GramCRN iteration.
+search run on the host, the device does one CG solve per call. The JAX
+package's solve is a ``lax.while_loop``; here CG runs in blocks of
+``CG_BLOCK`` iterations, each masked by the device flag ``(gamma > tol2) &
+(it < maxiter)``, so an iteration past the stop changes no bit, and the
+host reads the flag once per block. The iterates and iteration counts
+are those of a loop that reads the flag every iteration (the JAX
+package's, in fp64). On one card a block is a captured CUDA graph
+(``utils/graphs``), replayed until the flag reads done; under a mesh and
+on the CPU the blocks run eagerly. ``host_read.count`` counts every
+device-to-host read this module makes, ``cg_rep.iterations`` every CG
+iteration, ``cg_rep.block_replays`` and ``cg_rep.graph_captures`` the
+graphs' replays and captures, so a run can report them per GramCRN
+iteration.
 
 fp32 runs pin the committed state to exact fp64 host values after every
 iteration and roll back any iteration that raises the exact value
@@ -25,6 +32,8 @@ read replicated values, so all ranks take the same branches.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -32,11 +41,13 @@ from krylov_crn_tpu_torch.config import accum_dtype
 from krylov_crn_tpu_torch.ops.gram import (
     GramData,
     Rep,
+    _where_rep,
     k_matvec,
     rep_axpy,
     rep_dot,
 )
 from krylov_crn_tpu_torch.ops.math import over_n, reg_clamp, sigmoid, two_sum
+from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_gram import (
     GramKrylov,
@@ -46,9 +57,10 @@ from krylov_crn_tpu_torch.solvers.krylov_gram import (
     _gram_value,
     _x_sqnorm,
 )
+from krylov_crn_tpu_torch.utils.graphs import StepGraphs
 
-__all__ = ["GramCRN", "gram_crn_step", "cg_rep", "host_read",
-           "watch_rollbacks"]
+__all__ = ["GramCRN", "gram_crn_step", "cg_rep", "cg_block", "CG_BLOCK",
+           "host_read", "watch_rollbacks"]
 
 
 def host_read(*tensors):
@@ -74,35 +86,167 @@ def _rep_zero(npad, cdt, dev):
     return Rep(torch.zeros((), dtype=cdt, device=dev), z, z)
 
 
-def cg_rep(gd: GramData, matvec, b: Rep, rtol, maxiter, adt):
-    """CG over rep-space vectors; the JAX package's ``cg_rep`` with one
-    host read of the stopping flag per iteration. Returns (x, its)."""
-    cdt = b.w.dtype
+# CG iterations per host read. A solve of N iterations runs ceil(N / B)
+# blocks (one if it starts converged), so it runs fewer than B masked
+# iterations past its stop, each a whole CG iteration (1.0 ms of device
+# time on rcv1-like, H100), and reads the host ceil(N / B) times instead
+# of N + 1. B = 4 costs 1.5 masked iterations a solve on average and cuts
+# the reads fourfold.
+CG_BLOCK = 4
 
-    def dot(u, v):
-        return rep_dot(gd, u, v, adt)
 
-    bnorm2 = dot(b, b)
+class CGState(NamedTuple):
+    """What a CG solve carries from one iteration to the next."""
+
+    x: Rep
+    r: Rep
+    p: Rep
+    gamma: torch.Tensor  # <r, r> in the accumulation dtype
+    it: torch.Tensor  # iterations run (int64)
+
+
+def _cg_going(st: CGState, tol2, maxiter):
+    return (st.gamma > tol2) & (st.it < maxiter)
+
+
+def _cg_start(gd: GramData, b: Rep, rtol, adt):
+    """(tol2, the state before the first iteration): x = 0, r = p = b."""
+    bnorm2 = rep_dot(gd, b, b, adt)
     tol2 = (rtol * rtol) * bnorm2
-    x = _rep_zero(b.w.shape[0], cdt, b.w.device)
-    r = p = b
-    gamma = bnorm2
-    it = 0
-    while it < maxiter and host_read(gamma > tol2):
+    zero = _rep_zero(b.w.shape[0], b.w.dtype, b.w.device)
+    it = torch.zeros((), dtype=torch.int64, device=b.w.device)
+    return tol2, CGState(zero, b, b, bnorm2, it)
+
+
+def cg_block(gd: GramData, matvec, st: CGState, tol2, maxiter, adt,
+             block: int) -> CGState:
+    """``block`` CG iterations, each masked by ``_cg_going``: where the
+    solve has stopped, x, r, p, gamma and it keep their bits. No host
+    read."""
+    cdt = st.r.w.dtype
+    for _ in range(block):
+        x, r, p, gamma, it = st
+        going = _cg_going(st, tol2, maxiter)
         Ap = matvec(p)
-        alpha = (gamma / dot(p, Ap)).to(cdt)
-        x = rep_axpy(x, alpha, p)
-        r = rep_axpy(r, -alpha, Ap)
-        gamma_new = dot(r, r)
-        beta = (gamma_new / gamma).to(cdt)
-        p = Rep(r.beta + beta * p.beta, r.w + beta * p.w, r.u + beta * p.u)
-        gamma = gamma_new
-        it += 1
-    cg_rep.iterations += it
-    return x, it
+        alpha = (gamma / rep_dot(gd, p, Ap, adt)).to(cdt)
+        x_n = rep_axpy(x, alpha, p)
+        r_n = rep_axpy(r, -alpha, Ap)
+        gamma_n = rep_dot(gd, r_n, r_n, adt)
+        beta = (gamma_n / gamma).to(cdt)
+        p_n = Rep(r_n.beta + beta * p.beta, r_n.w + beta * p.w,
+                  r_n.u + beta * p.u)
+        st = CGState(_where_rep(going, x_n, x), _where_rep(going, r_n, r),
+                     _where_rep(going, p_n, p),
+                     torch.where(going, gamma_n, gamma),
+                     it + going.to(it.dtype))
+    return st
+
+
+def _cg_blocks(run_block, st: CGState, tol2, maxiter):
+    """Blocks until the flag reads done, one host read per block (the flag
+    and the iteration count in one transfer). Returns (x, its)."""
+    while True:
+        st = run_block(st)
+        going, its = host_read(_cg_going(st, tol2, maxiter), st.it)
+        if not going:
+            break
+    its = int(its)
+    cg_rep.iterations += its
+    return st.x, its
+
+
+def cg_rep(gd: GramData, matvec, b: Rep, rtol, maxiter, adt):
+    """CG over rep-space vectors; the JAX package's ``cg_rep`` in eager
+    blocks of ``CG_BLOCK`` masked iterations, one host read per block.
+    Returns (x, its)."""
+    tol2, st = _cg_start(gd, b, rtol, adt)
+    block = CG_BLOCK
+    return _cg_blocks(lambda s: cg_block(gd, matvec, s, tol2, maxiter, adt,
+                                         block), st, tol2, maxiter)
 
 
 cg_rep.iterations = 0
+cg_rep.block_replays = 0
+cg_rep.graph_captures = 0
+
+
+class _CGBuffers(NamedTuple):
+    """A CG block's static buffers: the operator's D and shift, tol2, and
+    the carried state, flat."""
+
+    D: torch.Tensor
+    lam: torch.Tensor
+    tol2: torch.Tensor
+    xb: torch.Tensor
+    xw: torch.Tensor
+    xu: torch.Tensor
+    rb: torch.Tensor
+    rw: torch.Tensor
+    ru: torch.Tensor
+    pb: torch.Tensor
+    pw: torch.Tensor
+    pu: torch.Tensor
+    gamma: torch.Tensor
+    it: torch.Tensor
+
+
+def _flat(st: CGState):
+    return (*st.x, *st.r, *st.p, st.gamma, st.it)
+
+
+def _unflat(bufs: _CGBuffers) -> CGState:
+    return CGState(Rep(bufs.xb, bufs.xw, bufs.xu),
+                   Rep(bufs.rb, bufs.rw, bufs.ru),
+                   Rep(bufs.pb, bufs.pw, bufs.pu), bufs.gamma, bufs.it)
+
+
+class _CGGraphs(StepGraphs):
+    """A block of ``CG_BLOCK`` CG iterations on (H + lam I) captured as a
+    CUDA graph, for one GramCRN on one card. The block runs over static
+    buffers (D, the shifted lam, tol2, x, r, p, gamma, it); a solve is the
+    start state loaded, then replays until the flag reads done. Graphs
+    are keyed on the GramData (K's address), l2, the dtypes, the block
+    and maxiter; a new GramData drops them."""
+
+    def __init__(self, device):
+        super().__init__(device, ((symv, "launches"),
+                                  (k_matvec, "cuda_calls")),
+                         (cg_rep, "graph_captures"),
+                         (cg_rep, "block_replays"))
+        self.gd = None
+
+    def solve(self, gd: GramData, D, rhs: Rep, lam_c, l2, rtol, maxiter,
+              adt):
+        """CG on (H + lam_c I) s = rhs; returns (s, its) as ``cg_rep``."""
+        if self.gd is not gd:
+            self.graphs.clear()
+            self.gd = gd
+        tol2, st = _cg_start(gd, rhs, rtol, adt)
+        start = _CGBuffers(D, lam_c, tol2, *_flat(st))
+        self.buffers(start)
+        self.load(start)
+        block = CG_BLOCK
+        key = (gd.K.data_ptr(), float(l2), rhs.w.dtype, adt, block,
+               int(maxiter))
+        entry = self.graphs.get(key)
+        if entry is None:
+            def run(bufs):
+                hop = _hop(gd, bufs.D, l2)
+                return cg_block(gd, lambda v: rep_axpy(hop(v), bufs.lam, v),
+                                _unflat(bufs), bufs.tol2, maxiter, adt, block)
+
+            def body():
+                for dst, src in zip(self.state[3:], _flat(run(self.state))):
+                    dst.copy_(src)
+
+            entry = self.capture(key, body, lambda: run(self.clone()))
+
+        def replay(_):
+            self.replay(entry)
+            return _unflat(self.state)
+
+        x, its = _cg_blocks(replay, st, self.state.tol2, maxiter)
+        return Rep(*(t.clone() for t in x)), its
 
 
 def _grad_probe(gd: GramData, state: GramKrylovState, l2, adt):
@@ -137,14 +281,20 @@ def _hop(gd: GramData, D, l2):
 
 
 def _cg_shifted(gd: GramData, D, rhs: Rep, lam, l2, solver_eps, cg_maxiter,
-                adt):
-    """Solve (H + lam I) s = rhs by CG. Returns (s, <s, s>, iterations)."""
+                adt, graphs=None):
+    """Solve (H + lam I) s = rhs by CG, through the replayed blocks of
+    ``graphs`` (a ``_CGGraphs``) where given. Returns (s, <s, s>,
+    iterations)."""
     cdt = rhs.w.dtype
-    hop = _hop(gd, D, l2)
     # lam rounds to the accumulation dtype, then to the storage dtype
     lam_c = _full(lam, adt, rhs.w.device).to(cdt)
-    s, it = cg_rep(gd, lambda v: rep_axpy(hop(v), lam_c, v), rhs,
-                   solver_eps, cg_maxiter, adt)
+    if graphs is not None:
+        s, it = graphs.solve(gd, D, rhs, lam_c, l2, solver_eps, cg_maxiter,
+                             adt)
+    else:
+        hop = _hop(gd, D, l2)
+        s, it = cg_rep(gd, lambda v: rep_axpy(hop(v), lam_c, v), rhs,
+                       solver_eps, cg_maxiter, adt)
     return s, rep_dot(gd, s, s, adt), it
 
 
@@ -201,10 +351,12 @@ def gram_crn_step(
     cg_maxiter: int = 500,
     accum_dtype=None,
     reg_ceil: float = 1e6,
+    cg_graphs=None,
 ) -> GramKrylovState:
     """One CRN-CG iteration: host-sequenced secular Newton and
     backtracking line search over one-CG-solve device calls (reference
-    cubic.py:152-182 and 190-226)."""
+    cubic.py:152-182 and 190-226). ``cg_graphs`` (a ``_CGGraphs``, one
+    card): every CG solve replays its captured blocks."""
     cdt = state.zeta.dtype
     adt = cdt if accum_dtype is None else accum_dtype
     dev = state.zeta.device
@@ -225,7 +377,7 @@ def gram_crn_step(
 
     def solve(lam):
         return _cg_shifted(gd, D, neg_g, lam, l2, solver_eps, cg_maxiter,
-                           adt)
+                           adt, cg_graphs)
 
     def newton(reg):
         """Safeguarded 1-D Newton on phi(lam) = lam^2 - reg^2 ||s(lam)||^2
@@ -238,7 +390,7 @@ def gram_crn_step(
         while it < solver_it_max:
             s, s2_dev, _ = solve(lam)
             hinv_s, _, _ = _cg_shifted(gd, D, s, lam, l2, solver_eps,
-                                       cg_maxiter, adt)
+                                       cg_maxiter, adt, cg_graphs)
             s2, sh = host_read(s2_dev, rep_dot(gd, s, hinv_s, adt))
             phi = lam * lam - reg * reg * s2
             dphi = 2.0 * lam + 2.0 * reg * reg * sh
@@ -299,8 +451,9 @@ def gram_crn_step(
 
 class GramCRN(GramKrylov):
     """Reference ``Cubic_LS`` with cubic_solver="CG", in Gram space, on
-    ``device``. ``metrics["cg_its"]`` and ``["host_reads"]`` record each
-    iteration's CG iterations and host reads."""
+    ``device``. ``metrics["cg_its"]``, ``["cg_replays"]`` and
+    ``["host_reads"]`` record each iteration's CG iterations, CG block
+    replays (one card) and host reads."""
 
     def __init__(self, reg_coef=None, solver_it_max=100, solver_eps=1e-8,
                  beta=0.5, cg_maxiter=500, ls_max=200, **kwargs):
@@ -309,11 +462,23 @@ class GramCRN(GramKrylov):
                          ls_max=ls_max, **kwargs)
         self.cg_maxiter = int(cg_maxiter)
         self._crn_verified = None
+        self._cg_graphs: _CGGraphs | None = None
 
     def init_run(self, x0, seed):
         super().init_run(x0, seed)
         # each run seeds its own trust-but-verify baseline (step())
         self._crn_verified = None
+
+    def _cg_block_graphs(self):
+        """The instance's CG block graphs on one card, else None: the CPU
+        runs the blocks eagerly, and gloo's collectives cannot be
+        captured (under a mesh every rank reads the same replicated flag,
+        so all take the same branches)."""
+        if self.mesh is not None or not self.state.zeta.is_cuda:
+            return None
+        if self._cg_graphs is None:
+            self._cg_graphs = _CGGraphs(self.state.zeta.device)
+        return self._cg_graphs
 
     def step(self):
         fp32 = self.state.zeta.dtype == torch.float32
@@ -328,6 +493,7 @@ class GramCRN(GramKrylov):
             self._crn_verified = dict(gamma=gamma0, zeta=np.zeros(n),
                                       f=vhi0 + vlo0)
         reads0, cg0 = host_read.count, cg_rep.iterations
+        replays0 = cg_rep.block_replays
         self.state = gram_crn_step(
             self.gd, self.state,
             l2=self.loss.l2, beta=self.beta, solver_eps=self.solver_eps,
@@ -336,6 +502,7 @@ class GramCRN(GramKrylov):
             cg_maxiter=self.cg_maxiter,
             accum_dtype=accum_dtype(self.state.zeta.dtype),
             reg_ceil=max(1e6, 1e4 * float(self.reg_coef)),
+            cg_graphs=self._cg_block_graphs(),
         )
         m = self.trace.metrics
         if fp32:
@@ -368,6 +535,8 @@ class GramCRN(GramKrylov):
             m.setdefault("exact_its", []).append(self.it + 1)
             m.setdefault("exact_fs", []).append(v64)
         m.setdefault("cg_its", []).append(cg_rep.iterations - cg0)
+        m.setdefault("cg_replays", []).append(cg_rep.block_replays
+                                              - replays0)
         m.setdefault("host_reads", []).append(host_read.count - reads0)
 
     def check_convergence(self):

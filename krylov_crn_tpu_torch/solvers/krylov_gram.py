@@ -76,6 +76,7 @@ from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
 from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows, check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
+from krylov_crn_tpu_torch.utils.graphs import StepGraphs
 
 __all__ = ["GramKrylov", "GramKrylovState", "gram_krylov_step",
            "gram_krylov_multistep"]
@@ -410,41 +411,12 @@ _REP_ROWS = ("gamma", "zeta")
 # the captured step launched, and adds what its capture counted
 _COUNTERS = ((symv, "launches"), (k_matvec, "cuda_calls"),
              (_lr_matvec, "cuda_calls"), (matvec, "launches"),
-             (tridiag_secular, "launches"))
+             (matvec, "shape_launches"), (tridiag_secular, "launches"))
 
 
-def _read_counts():
-    return ([getattr(h, a) for h, a in _COUNTERS],
-            dict(matvec.shape_launches))
-
-
-def _take_counts(before):
-    """Set the counters back to ``before`` (a capture launches nothing)
-    and return what they counted since, which each replay then adds."""
-    vals, shapes = before
-    now, now_shapes = _read_counts()
-    for (h, a), v in zip(_COUNTERS, vals):
-        setattr(h, a, v)
-    matvec.shape_launches.clear()
-    matvec.shape_launches.update(shapes)
-    return ([n - v for n, v in zip(now, vals)],
-            {key: k - shapes.get(key, 0) for key, k in now_shapes.items()
-             if k != shapes.get(key, 0)})
-
-
-def _add_counts(delta, times: int):
-    vals, shapes = delta
-    for (h, a), v in zip(_COUNTERS, vals):
-        setattr(h, a, getattr(h, a) + v * times)
-    for key, k in shapes.items():
-        matvec.shape_launches[key] = (matvec.shape_launches.get(key, 0)
-                                      + k * times)
-
-
-class _StepGraphs:
-    """``gram_krylov_step`` captured as CUDA graphs, for one GramKrylov
-    instance on one card (the instance owns them; releasing it frees their
-    memory pools).
+class _StepGraphs(StepGraphs):
+    """``gram_krylov_step`` captured as CUDA graphs (``utils/graphs``),
+    for one GramKrylov instance on one card.
 
     Every graph reads the state from the static buffers ``state``, writes
     the new state back into them, writes the step's rows (``_ROWS``, and
@@ -456,61 +428,31 @@ class _StepGraphs:
     Graphs are keyed on what the JAX package keys its jit on (``use_lr``,
     ``stack_reps``, the step's keyword arguments, which hold m and the
     accumulation dtype) and on the data pointers of K and K_lr; they all
-    read the buffers of one GramData, which a new one drops. Before a
-    capture the step runs once eagerly on the capture stream, so that the
-    kernels' one-time set-up and the per-stream workspaces (cuBLAS's, the
-    matvec kernel's tile tickets) happen outside the graph. A capture
-    that fails raises."""
+    read the buffers of one GramData, which a new one drops."""
 
     def __init__(self, device):
-        self.device = device
-        self.stream = None
+        super().__init__(device, _COUNTERS,
+                         (gram_krylov_step, "graph_captures"),
+                         (gram_krylov_step, "graph_replays"))
         self.gd = None
-        self.state = None
         self.rows = {}
         self.pos = None
-        self.graphs = {}
 
     def _buffers(self, state: GramKrylovState, chunk: int,
                  stack_reps: bool):
-        """Static buffers like ``state`` with room for ``chunk`` rows; new
-        buffers drop every graph (they hold the old ones' addresses)."""
+        """Static buffers like ``state`` with room for ``chunk`` rows."""
         cap = self.rows["value"].shape[0] if self.rows else 0
-        if (self.state is not None and cap >= chunk
-                and all(a.shape == b.shape and a.dtype == b.dtype
-                        for a, b in zip(self.state, state))
-                and (not stack_reps or "zeta" in self.rows)):
+        if cap < chunk or (stack_reps and "zeta" not in self.rows):
+            self.state = None  # the rows grow: new buffers, no graph
+        if not self.buffers(state):
             return
-        self.graphs.clear()
         names = _ROWS + (_REP_ROWS if stack_reps or "zeta" in self.rows
                          else ())
         cap = max(cap, chunk)
-        self.state = GramKrylovState(*(torch.empty(t.shape, dtype=t.dtype,
-                                                   device=self.device)
-                                       for t in state))
         self.rows = {n: torch.zeros((cap,) + tuple(getattr(state, n).shape),
                                     dtype=getattr(state, n).dtype,
                                     device=self.device) for n in names}
         self.pos = torch.zeros(1, dtype=torch.int64, device=self.device)
-
-    def _load(self, state: GramKrylovState):
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-
-    def _on_capture_stream(self, fn):
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.device)
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()
-        cur.wait_stream(self.stream)
-
-    def _record(self, body):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            body()
-        return graph
 
     def graph(self, gd: GramData, state: GramKrylovState, kw: dict,
               use_lr: bool, stack_reps: bool, chunk: int):
@@ -526,7 +468,7 @@ class _StepGraphs:
                gd.K_lr.data_ptr() if gd.K_lr is not None else 0)
         entry = self.graphs.get(key)
         if entry is None:
-            self._load(state)
+            self.load(state)
             names = _ROWS + (_REP_ROWS if stack_reps else ())
 
             def body():
@@ -538,28 +480,18 @@ class _StepGraphs:
                     dst.copy_(src)
                 self.pos.add_(1)
 
-            self._on_capture_stream(lambda: gram_krylov_step(
-                gd, GramKrylovState(*(t.clone() for t in self.state)),
-                use_lr=use_lr, **kw))
-            before = _read_counts()
-            graph = self._record(body)
-            entry = self.graphs[key] = (graph, _take_counts(before))
-            gram_krylov_step.graph_captures += 1
+            entry = self.capture(key, body, lambda: gram_krylov_step(
+                gd, self.clone(), use_lr=use_lr, **kw))
         return entry
 
     def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
         """k replays of ``entry`` from ``state``: the final state and the
         chunk's stacks, as ``gram_krylov_multistep`` returns them."""
-        graph, delta = entry
-        self._load(state)
+        self.load(state)
         self.pos.zero_()
-        for _ in range(k):
-            graph.replay()
-        _add_counts(delta, k)
-        gram_krylov_step.graph_replays += k
-        out = GramKrylovState(*(t.clone() for t in self.state))
-        return out, _chunk_outs(lambda n: self.rows[n][:k].clone(),
-                                stack_reps)
+        self.replay(entry, k)
+        return self.clone(), _chunk_outs(
+            lambda n: self.rows[n][:k].clone(), stack_reps)
 
 
 gram_krylov_step.graph_captures = 0
