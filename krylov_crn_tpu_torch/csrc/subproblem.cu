@@ -34,6 +34,19 @@
 // emulation in ops/subproblem.py (tridiag_secular_emulated) reproduces the
 // results bit for bit. No atomics, no host read.
 //
+// A second entry, eig_secular, runs only the Newton part, for L candidates
+// over a dense spectrum (theta, c) of m up to MAX_SECULAR_M modes: the
+// vmapped secular_newton of the JAX package's CRN "full" and SSCN steps
+// (krylov_crn_tpu/ops/subproblem.py:58, behind cubic_solve_eigh), whose
+// eigendecomposition csrc/eigh.cu makes. Bound: latency; each Newton step
+// reads theta and c (m = 1000: 8 KB from L1) and does ~8 m operations.
+// Design: one warp per candidate. Lane l sums the terms l, l + 32, ... in
+// index order (c^2 = 0 terms dropped), then a fixed xor-shuffle tree adds
+// the 32 partial sums, so every lane holds the same sums and takes the
+// same branches; the stopping rule, the pole safeguard at lo and lo_strict
+// are the JAX while_loop's. ops/subproblem.py:eig_secular_emulated
+// reproduces it bit for bit.
+//
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -253,6 +266,96 @@ int launch(const T* alphas, const T* betas, const T* g_norm, const T* regs,
     return (int)cudaGetLastError();
 }
 
+
+constexpr int SECULAR_WARPS = 4;      // candidates per block of eig_secular
+constexpr int MAX_SECULAR_M = 2048;   // csrc/eigh.cu's largest matrix
+constexpr int MAX_SECULAR_L = 1024;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+    for (int off = 16; off >= 1; off >>= 1)
+        v = v + __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SECULAR_WARPS * 32)
+eig_secular_kernel(const T* __restrict__ theta, const T* __restrict__ c,
+                   const T* __restrict__ regs, const T* __restrict__ r0,
+                   T xtol, int it_max, int m, int L, T* __restrict__ lams,
+                   long long* __restrict__ its) {
+    const int lane = threadIdx.x & 31;
+    const int j = blockIdx.x * SECULAR_WARPS + (threadIdx.x >> 5);
+    if (j >= L) return;  // the whole warp
+    // min(theta), NaN if any theta is NaN (jnp.min's and torch.min's rule)
+    T mn;
+    set_inf(mn);
+    int bad = 0;
+    for (int i = lane; i < m; i += 32) {
+        const T x = theta[i];
+        bad |= x != x;
+        if (x < mn) mn = x;
+    }
+    for (int off = 16; off >= 1; off >>= 1) {
+        const T o = __shfl_xor_sync(0xffffffffu, mn, off);
+        if (o < mn) mn = o;
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (bad) set_nan(mn);
+    const T nmn = -mn;
+    const T lo = (nmn > T(0) || nmn != nmn) ? nmn : T(0);
+    const T lo_strict = lo > T(0) ? lo + T(1e-6) * (T(1) + lo) : lo;
+    // max(r0, lo_strict), NaN if either is NaN (the JAX loop's start)
+    const T r = r0[0];
+    T lam = r >= lo_strict ? r : lo_strict;
+    if (r != r) lam = r;
+    const T M = regs[j];
+    const T MM = M * M;
+    T step;
+    set_inf(step);
+    int it = 0;
+    while (absval(step) >= xtol && it < it_max) {
+        T s2 = T(0), s3 = T(0);
+        for (int i = lane; i < m; i += 32) {
+            const T ci = c[i];
+            const T c2 = ci * ci;
+            if (c2 > T(0)) {  // zero-weight modes drop out
+                const T sf = theta[i] + lam;
+                const T sq = sf * sf;
+                s2 = s2 + c2 / sq;
+                s3 = s3 + c2 / (sq * sf);
+            }
+        }
+        s2 = warp_sum(s2);
+        s3 = warp_sum(s3);
+        const T phi = lam * lam - MM * s2;
+        const T dphi = T(2) * lam + T(2) * MM * s3;
+        T lam_new = lam - phi / dphi;
+        // never cross the pole
+        if (lam_new <= lo) lam_new = (lam + lo) / T(2);
+        step = lam_new - lam;
+        lam = lam_new;
+        ++it;
+    }
+    if (lane == 0) {
+        lams[j] = lam;
+        its[j] = it;
+    }
+}
+
+template <typename T>
+int launch_secular(const T* theta, const T* c, const T* regs, const T* r0,
+                   double xtol, int it_max, int m, int L, T* lams,
+                   long long* its, void* stream) {
+    if (m < 1 || m > MAX_SECULAR_M || L < 1 || L > MAX_SECULAR_L)
+        return (int)cudaErrorInvalidValue;
+    const int grid = (L + SECULAR_WARPS - 1) / SECULAR_WARPS;
+    eig_secular_kernel<T><<<grid, SECULAR_WARPS * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        theta, c, regs, r0, (T)xtol, it_max, m, L, lams, its);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,6 +374,27 @@ int tridiag_secular_f32(const float* alphas, const float* betas,
                         long long* its, void* stream) {
     return launch<float>(alphas, betas, g_norm, regs, r0, xtol, it_max, m,
                          L, theta, Q, lams, its, stream);
+}
+
+int eig_secular_max_m() { return MAX_SECULAR_M; }
+int eig_secular_max_candidates() { return MAX_SECULAR_L; }
+
+// theta (m), c (m), regs (L), r0 (1) in; lams (L) and its (L) out: the
+// secular Newton root of every candidate regularization. All pointers are
+// device memory; the launch goes on `stream` and does not synchronize.
+int eig_secular_f32(const float* theta, const float* c, const float* regs,
+                    const float* r0, double xtol, int it_max, int m, int L,
+                    float* lams, long long* its, void* stream) {
+    return launch_secular<float>(theta, c, regs, r0, xtol, it_max, m, L,
+                                 lams, its, stream);
+}
+
+int eig_secular_f64(const double* theta, const double* c,
+                    const double* regs, const double* r0, double xtol,
+                    int it_max, int m, int L, double* lams, long long* its,
+                    void* stream) {
+    return launch_secular<double>(theta, c, regs, r0, xtol, it_max, m, L,
+                                  lams, its, stream);
 }
 
 int tridiag_secular_f64(const double* alphas, const double* betas,

@@ -37,11 +37,13 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # spills (kept in last_build_log)
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
-# flags of one kernel on top of those: csrc/subproblem.cu is emulated bit
-# for bit on the CPU (ops/subproblem.py), so every operation there rounds on
-# its own (no fused multiply-add) and divides and roots to nearest
-KERNEL_FLAGS = {"subproblem": ["--fmad=false", "--prec-div=true",
-                               "--prec-sqrt=true", "--ftz=false"]}
+# flags of one kernel on top of those: csrc/subproblem.cu and csrc/eigh.cu
+# are emulated bit for bit on the CPU (ops/subproblem.py, ops/eigh.py), so
+# every operation there rounds on its own (no fused multiply-add) and
+# divides and roots to nearest
+_EXACT = ["--fmad=false", "--prec-div=true", "--prec-sqrt=true",
+          "--ftz=false"]
+KERNEL_FLAGS = {"subproblem": _EXACT, "eigh": _EXACT}
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -16,6 +16,11 @@ secular-equation approach, reference cubic.py:40-75):
   device). ``tridiag_secular_plain`` is the same function from the two
   pieces above (the CPU's path), and ``tridiag_secular_emulated`` the
   kernel's own scalar algorithm in numpy, bit for bit;
+* ``eig_secular``: the batched Newton alone over a dense spectrum (the CRN
+  "full" and SSCN steps, whose eigendecomposition ``ops/eigh.sym_eigh``
+  makes), one launch of the same file's second kernel on a card, with no
+  host read; ``secular_newton`` on the CPU, ``eig_secular_emulated`` the
+  kernel in numpy;
 * a matrix-free CG variant for the full-space CRN "CG" solver
   (cubic.py:152-182): each phi needs one CG solve, each phi' a second.
 """
@@ -28,31 +33,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from krylov_crn_tpu_torch.ops.eigh import sym_eigh
+
 __all__ = ["sym_eigh", "tridiag_eigh", "secular_newton", "tridiag_secular",
            "tridiag_secular_plain", "tridiag_secular_emulated",
-           "CubicSolution", "cubic_solve_eigh", "cubic_subproblem_eigh",
-           "cubic_solve_cg"]
+           "eig_secular", "eig_secular_emulated", "CubicSolution",
+           "cubic_solve_eigh", "cubic_subproblem_eigh", "cubic_solve_cg"]
 
 MAX_M = 64  # csrc/subproblem.cu: the largest tridiagonal
 MAX_CANDIDATES = 64  # csrc/subproblem.cu: threads of its one block
 QL_MAX_SWEEPS = 60  # csrc/subproblem.cu: QL sweeps per eigenvalue
-
-
-def sym_eigh(H: torch.Tensor):
-    """(theta, Q) of a dense symmetric H (lower triangle), ascending.
-
-    On a card this is cuSOLVER through ``torch.linalg.eigh``. On the CPU it
-    is LAPACK's ``dsyevd``/``ssyevd`` through scipy, the library the JAX
-    package's CPU ``eigh`` calls: torch's CPU build calls MKL's, whose
-    multithreaded divide-and-conquer fails to converge on SSCN Hessians
-    whose sampled columns are mostly empty (446 exact zero rows of 500 on
-    rcv1-like), where scipy's and a one-thread MKL call both succeed."""
-    if H.device.type != "cpu":
-        return torch.linalg.eigh(H)
-    import scipy.linalg
-
-    theta, Q = scipy.linalg.eigh(H.numpy(), lower=True, driver="evd")
-    return torch.from_numpy(theta), torch.from_numpy(Q)
+SECULAR_MAX_M = 2048  # csrc/subproblem.cu: eig_secular's largest spectrum
+SECULAR_MAX_L = 1024  # csrc/subproblem.cu: eig_secular's candidates
 
 
 class CubicSolution(NamedTuple):
@@ -137,14 +129,23 @@ def _library():
                 ctypes.c_double] + [ctypes.c_int] * 3 + [
                 ctypes.c_void_p] * 5
             fn.restype = ctypes.c_int
+        for fn in (lib.eig_secular_f32, lib.eig_secular_f64):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_double] + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p] * 3
+            fn.restype = ctypes.c_int
         for fn in (lib.tridiag_secular_max_m,
-                   lib.tridiag_secular_max_candidates):
+                   lib.tridiag_secular_max_candidates,
+                   lib.eig_secular_max_m, lib.eig_secular_max_candidates):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         if (lib.tridiag_secular_max_m() != MAX_M
-                or lib.tridiag_secular_max_candidates() != MAX_CANDIDATES):
+                or lib.tridiag_secular_max_candidates() != MAX_CANDIDATES
+                or lib.eig_secular_max_m() != SECULAR_MAX_M
+                or lib.eig_secular_max_candidates() != SECULAR_MAX_L):
             raise RuntimeError("csrc/subproblem.cu limits disagree with "
-                               "MAX_M / MAX_CANDIDATES")
+                               "MAX_M / MAX_CANDIDATES / SECULAR_MAX_M / "
+                               "SECULAR_MAX_L")
         _lib = lib
     return _lib
 
@@ -358,14 +359,130 @@ def tridiag_secular_emulated(alphas, betas, g_norm, regs, r0,
 tridiag_secular_emulated.rotations = 0
 
 
+def eig_secular(theta, c, regs, r0, xtol: float = 1e-8, it_max: int = 100):
+    """(lams, its): the secular Newton root and its iteration count for
+    every candidate regularization in ``regs`` (shape (L,)), over the
+    spectrum ``theta`` (m,) with weights ``c`` (m,), from the warm start
+    ``r0`` (one element).
+
+    CPU tensors: ``secular_newton``. CUDA tensors (fp32 or fp64, m <=
+    SECULAR_MAX_M, L <= SECULAR_MAX_L): one launch of
+    ``csrc/subproblem.cu``'s ``eig_secular``, which reads nothing back to
+    the host, or an error."""
+    ts = dict(theta=theta, c=c, regs=regs, r0=r0)
+    if all(t.device.type == "cpu" for t in ts.values()):
+        return secular_newton(theta, c, regs, r0.reshape(()), xtol=xtol,
+                              it_max=it_max)
+    dev, dt = theta.device, theta.dtype
+    for name, t in ts.items():
+        if not (t.is_cuda and t.device == dev):
+            raise ValueError(f"eig_secular: {name} ({t.device}) must lie "
+                             f"on theta's CUDA device ({dev})")
+        if t.dtype != dt or dt not in (torch.float32, torch.float64):
+            raise TypeError(f"eig_secular: fp32 or fp64 throughout, got "
+                            f"{name} {t.dtype} beside theta {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"eig_secular: {name} must be contiguous")
+    m, L = theta.numel(), regs.numel()
+    if (theta.dim() != 1 or c.shape != (m,) or regs.dim() != 1
+            or r0.numel() != 1):
+        raise ValueError(f"eig_secular: theta (m,), c (m,), regs (L,) and "
+                         f"a one-element r0, got {tuple(theta.shape)}, "
+                         f"{tuple(c.shape)}, {tuple(regs.shape)}, "
+                         f"{tuple(r0.shape)}")
+    if not (1 <= m <= SECULAR_MAX_M and 1 <= L <= SECULAR_MAX_L):
+        raise ValueError(f"eig_secular: m = {m} (at most {SECULAR_MAX_M}) "
+                         f"and L = {L} (at most {SECULAR_MAX_L})")
+    lib = _library()
+    lams = torch.empty(L, dtype=dt, device=dev)
+    its = torch.empty(L, dtype=torch.int64, device=dev)
+    fn = lib.eig_secular_f32 if dt == torch.float32 else lib.eig_secular_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(theta.data_ptr(), c.data_ptr(), regs.data_ptr(),
+                 r0.data_ptr(), float(xtol), int(it_max), m, L,
+                 lams.data_ptr(), its.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"eig_secular kernel launch failed: CUDA error "
+                           f"{err}")
+    eig_secular.launches += 1
+    return lams, its
+
+
+eig_secular.launches = 0
+
+WARP = 32
+
+
+def eig_secular_emulated(theta, c, regs, r0, xtol: float = 1e-8,
+                         it_max: int = 100):
+    """``csrc/subproblem.cu``'s ``eig_secular`` in numpy arrays of theta's
+    dtype, each operation rounded on its own: the same (lams, its) bit for
+    bit. Lane l of a candidate's warp sums the modes l, l + 32, ... in
+    index order; an xor-shuffle tree (16, 8, 4, 2, 1) then adds the 32
+    partial sums."""
+    theta = np.asarray(theta)
+    T = theta.dtype.type
+    if theta.dtype not in (np.float32, np.float64):
+        raise TypeError(f"fp32 or fp64 only, got {theta.dtype}")
+    c = np.asarray(c, T)
+    M = np.asarray(regs, T)
+    m, L = theta.shape[0], M.shape[0]
+    chunks = -(-m // WARP)
+    pad = chunks * WARP - m
+    th = np.concatenate([theta, np.zeros(pad, T)]).reshape(chunks, WARP)
+    cc = np.concatenate([c, np.zeros(pad, T)]).reshape(chunks, WARP)
+    lanes = np.arange(WARP)
+    with np.errstate(all="ignore"):
+        c2 = cc * cc  # the padding has c^2 = 0: dropped as the kernel's
+        mn = np.min(theta)
+        lo = -mn if (-mn > 0 or np.isnan(mn)) else T(0)
+        lo_strict = lo + T(1e-6) * (T(1) + lo) if lo > 0 else lo
+        lam = np.full(L, np.maximum(T(np.asarray(r0).reshape(())),
+                                    lo_strict), T)
+        MM = M * M
+        step = np.full(L, np.inf, T)
+        its = np.zeros(L, np.int64)
+        xt = T(xtol)
+
+        def tree(P):
+            for off in (16, 8, 4, 2, 1):
+                P = P + P[:, lanes ^ off]
+            return P[:, 0]
+
+        while True:
+            active = (np.abs(step) >= xt) & (its < it_max)
+            if not active.any():
+                break
+            P2 = np.zeros((L, WARP), T)
+            P3 = np.zeros((L, WARP), T)
+            for k in range(chunks):
+                keep = c2[k][None, :] > 0
+                sf = th[k][None, :] + lam[:, None]
+                sq = sf * sf
+                P2 = np.where(keep, P2 + c2[k][None, :] / sq, P2)
+                P3 = np.where(keep, P3 + c2[k][None, :] / (sq * sf), P3)
+            s2, s3 = tree(P2), tree(P3)
+            phi = lam * lam - MM * s2
+            dphi = T(2) * lam + T(2) * MM * s3
+            lam_new = lam - phi / dphi
+            lam_new = np.where(lam_new <= lo, (lam + lo) / T(2), lam_new)
+            step = np.where(active, lam_new - lam, step)
+            lam = np.where(active, lam_new, lam)
+            its = its + active
+    return lam, its
+
+
 def cubic_solve_eigh(theta, Q, g, M, r0, xtol: float = 1e-8,
                      it_max: int = 100) -> CubicSolution:
-    """Solve the cubic subproblem given a ready eigendecomposition of H."""
+    """Solve the cubic subproblem given a ready eigendecomposition of H
+    (the Newton through ``eig_secular``: on a card, its kernel)."""
     dt = theta.dtype
     M = torch.as_tensor(M, dtype=dt, device=theta.device)
+    r0 = torch.as_tensor(r0, dtype=dt, device=theta.device)
     c = Q.T @ g.to(dt)
-    lam, it = secular_newton(theta, c, M.reshape(1), r0, xtol=xtol,
-                             it_max=it_max)
+    lam, it = eig_secular(theta, c, M.reshape(1), r0.reshape(1), xtol=xtol,
+                          it_max=it_max)
     lam, it = lam[0], it[0]
     cz = c != 0
     u = torch.where(cz, -c / torch.where(cz, theta + lam, 1.0), 0.0)

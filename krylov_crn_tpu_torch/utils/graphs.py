@@ -120,22 +120,25 @@ class StepGraphs:
             else:
                 setattr(h, a, getattr(h, a) + d * times)
 
-    def capture(self, key, body, warm):
+    def capture(self, key, body, warm, replays=None):
         """Capture ``body`` (the step on the static buffers) as the graph
         of ``key``, after ``warm()`` (one eager step that leaves the
         buffers as they are) on the capture stream. Returns the entry,
-        (graph, the counts a replay adds)."""
+        (graph, the counts a replay adds, the replay count it bumps:
+        ``replays``, a ``(holder, attribute)`` pair, where a kind of graph
+        has a count of its own, else the owner's)."""
         self._on_capture_stream(warm)
         before = self._read_counts()
         graph = self._record(body)
-        entry = self.graphs[key] = (graph, self._take_counts(before))
+        entry = self.graphs[key] = (graph, self._take_counts(before),
+                                    replays or self.replays)
         _bump(self.captures, 1)
         return entry
 
     def replay(self, entry, times: int = 1):
         """``times`` replays of ``entry``, with their counts."""
-        graph, delta = entry
+        graph, delta, replays = entry
         for _ in range(times):
             graph.replay()
         self._add_counts(delta, times)
-        _bump(self.replays, times)
+        _bump(replays, times)
