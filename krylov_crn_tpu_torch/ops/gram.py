@@ -58,6 +58,7 @@ from krylov_crn_tpu_torch.ops.math import accum_dot
 from krylov_crn_tpu_torch.ops.matvec import matvec
 from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows
+from krylov_crn_tpu_torch.utils.spans import span
 
 __all__ = ["GramData", "build_gram", "build_K_device", "syrk_split_pieces",
            "syrk_split_P", "syrk_split_P_plain", "Rep", "rep_dot",
@@ -309,8 +310,9 @@ def build_K_device(A, n_pad: int, dtype, device, col_block: int = 2048):
     the card went through the bf16 products. The split's buffers, allocated
     once per build: X and Y (n_pad x 4cb bf16 each), P and the pair sum
     (n_pad^2 fp32 each), 3.9 GB beside K at n_pad 20224."""
-    Rf, CE, Vf, starts, lens, cb, nblk = _pack_flat_panels(
-        A, n_pad, np.dtype(dtype), col_block)
+    with span("gram.build_K.pack", host=True):
+        Rf, CE, Vf, starts, lens, cb, nblk = _pack_flat_panels(
+            A, n_pad, np.dtype(dtype), col_block)
     tdt = as_torch_dtype(dtype)
     rows = torch.from_numpy(Rf.astype(np.int64)).to(device)
     vals = torch.from_numpy(Vf).to(device)
@@ -380,43 +382,45 @@ def build_gram(A, b, x0, dtype=np.float32, cache_dir: str | None = None,
     data lies on the mesh's device and K (and K_lr) is this rank's row
     band. Each rank still builds the whole K and keeps a copy of its band,
     so a band holds the bits of the single-device K."""
-    A = A.tocsr()
-    n, d = map(int, A.shape)
-    n_pad = pad_rows(n)
-    x0 = np.asarray(x0, np.float64)
-    if mesh is not None and not mesh.distributed:
-        mesh = None
-    if mesh is not None and n_pad % mesh.world:
-        raise ValueError(
-            f"build_gram: the {mesh.world} ranks of the mesh do not divide "
-            f"n_pad = {n_pad} (n = {n} padded to a multiple of {ROW_ALIGN})")
-    dev = resolve_device(device if mesh is None else mesh.device)
-    if device_build is None:
-        device_build = dev.type == "cuda"
-    if device_build:
-        K = build_K_device(A, n_pad, dtype, dev)
-    else:
-        Kp = np.zeros((n_pad, n_pad), dtype)
-        Kp[:n, :n] = _host_K(A, x0, dtype, cache_dir)
-        K = torch.from_numpy(Kp).to(dev)
-    if mesh is not None:
-        band = n_pad // mesh.world
-        K = K[mesh.rank * band:(mesh.rank + 1) * band].clone()
-    if low_res_lanczos is None:
-        low_res_lanczos = np.dtype(dtype) == np.float32
-    Ax0 = np.zeros(n_pad, dtype)
-    Ax0[:n] = A @ x0
-    bp = np.zeros(n_pad, dtype)
-    bp[:n] = np.asarray(b, dtype)
-    mask = np.zeros(n_pad, dtype)
-    mask[:n] = 1
-    aux = torch.from_numpy(np.stack([Ax0, bp, mask])).to(dev)
-    return GramData(
-        K=K, Ax0=aux[0], b=aux[1], mask=aux[2],
-        x0_sqnorm=torch.tensor(float(x0 @ x0), dtype=as_torch_dtype(dtype),
-                               device=dev),
-        n=n, d=d, nnz=int(A.nnz), mesh=mesh,
-        K_lr=K.to(torch.bfloat16) if low_res_lanczos else None)
+    with span("gram.build_K"):
+        A = A.tocsr()
+        n, d = map(int, A.shape)
+        n_pad = pad_rows(n)
+        x0 = np.asarray(x0, np.float64)
+        if mesh is not None and not mesh.distributed:
+            mesh = None
+        if mesh is not None and n_pad % mesh.world:
+            raise ValueError(
+                f"build_gram: the {mesh.world} ranks of the mesh do not "
+                f"divide n_pad = {n_pad} (n = {n} padded to a multiple of "
+                f"{ROW_ALIGN})")
+        dev = resolve_device(device if mesh is None else mesh.device)
+        if device_build is None:
+            device_build = dev.type == "cuda"
+        if device_build:
+            K = build_K_device(A, n_pad, dtype, dev)
+        else:
+            Kp = np.zeros((n_pad, n_pad), dtype)
+            Kp[:n, :n] = _host_K(A, x0, dtype, cache_dir)
+            K = torch.from_numpy(Kp).to(dev)
+        if mesh is not None:
+            band = n_pad // mesh.world
+            K = K[mesh.rank * band:(mesh.rank + 1) * band].clone()
+        if low_res_lanczos is None:
+            low_res_lanczos = np.dtype(dtype) == np.float32
+        Ax0 = np.zeros(n_pad, dtype)
+        Ax0[:n] = A @ x0
+        bp = np.zeros(n_pad, dtype)
+        bp[:n] = np.asarray(b, dtype)
+        mask = np.zeros(n_pad, dtype)
+        mask[:n] = 1
+        aux = torch.from_numpy(np.stack([Ax0, bp, mask])).to(dev)
+        return GramData(
+            K=K, Ax0=aux[0], b=aux[1], mask=aux[2],
+            x0_sqnorm=torch.tensor(float(x0 @ x0),
+                                   dtype=as_torch_dtype(dtype), device=dev),
+            n=n, d=d, nnz=int(A.nnz), mesh=mesh,
+            K_lr=K.to(torch.bfloat16) if low_res_lanczos else None)
 
 
 def k_matvec(K, q, mesh=None):

@@ -32,6 +32,7 @@ from krylov_crn_tpu_torch.parallel.mesh import (
     broadcast_scalar,
     check_replicated,
 )
+from krylov_crn_tpu_torch.utils.spans import span
 from krylov_crn_tpu_torch.utils.trace import Trace
 
 __all__ = ["Optimizer"]
@@ -181,11 +182,13 @@ class Optimizer:
             self.max_progress
 
     def save_checkpoint(self):
-        self.it += 1
-        self.t = self.elapsed()
-        if self.should_update_trace():
-            self.update_trace()
-        self.max_progress = max(self.time_progress, self.iterations_progress)
+        with span("run.checkpoint"):
+            self.it += 1
+            self.t = self.elapsed()
+            if self.should_update_trace():
+                self.update_trace()
+            self.max_progress = max(self.time_progress,
+                                    self.iterations_progress)
 
     def update_trace(self):
         if self.store_iterates:

@@ -61,6 +61,7 @@ from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_crn import _data_ptrs, initial_state
 from krylov_crn_tpu_torch.solvers.krylov_gram import _pick
 from krylov_crn_tpu_torch.utils.graphs import StepGraphs
+from krylov_crn_tpu_torch.utils.spans import span
 
 __all__ = ["CubicNewton", "CRNState", "crn_step_full", "crn_step_cg",
            "LS_BLOCK", "Search", "read_resolved"]
@@ -153,7 +154,8 @@ def read_resolved(search: Search) -> bool:
     """The host's read of a step's flag, once per block;
     ``read_resolved.count`` counts them."""
     read_resolved.count += 1
-    return bool(search.resolved)
+    with span("search.read"):
+        return bool(search.resolved)
 
 
 read_resolved.count = 0

@@ -77,6 +77,7 @@ from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows, check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.utils.graphs import StepGraphs
+from krylov_crn_tpu_torch.utils.spans import span
 
 __all__ = ["GramKrylov", "GramKrylovState", "gram_krylov_step",
            "gram_krylov_multistep"]
@@ -487,11 +488,12 @@ class _StepGraphs(StepGraphs):
     def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
         """k replays of ``entry`` from ``state``: the final state and the
         chunk's stacks, as ``gram_krylov_multistep`` returns them."""
-        self.load(state)
-        self.pos.zero_()
-        self.replay(entry, k)
-        return self.clone(), _chunk_outs(
-            lambda n: self.rows[n][:k].clone(), stack_reps)
+        with span("gram.replay"):
+            self.load(state)
+            self.pos.zero_()
+            self.replay(entry, k)
+            return self.clone(), _chunk_outs(
+                lambda n: self.rows[n][:k].clone(), stack_reps)
 
 
 gram_krylov_step.graph_captures = 0
@@ -680,25 +682,26 @@ class GramKrylov(Optimizer):
         # exact fp64 margins pair + initial gradient image (w_g, uK) on the
         # host (three sparse SpMVs): the incremental invariants start exact
         n_real = A.shape[0]
-        m64 = A.dot(x0h)
-        b64 = np.asarray(loss.b, np.float64)[:n_real]
-        w64 = (expit(m64) - b64) / n_real  # zeta = 0: no l2 term yet
-        uK64 = A.dot(A.T.dot(w64))
-        ls = np.where(m64 < 0, m64 - np.log1p(np.exp(m64)),
-                      -np.log1p(np.exp(-m64)))
-        value64 = float(np.mean((1.0 - b64) * m64 - ls))
-        if loss.l2:
-            value64 += 0.5 * loss.l2 * float(x0h @ x0h)
-        # value rides as a storage-dtype two-float pair; Ax_lo is
-        # m64 - fl(Ax0) with the same host cast the build uses for Ax0
-        vhi = dtype.type(value64)
-        buf = np.zeros(3 * npad + 3, dtype)
-        buf[:n_real] = (m64 - m64.astype(dtype).astype(np.float64)
-                        ).astype(dtype)
-        buf[npad:npad + n_real] = w64.astype(dtype)
-        buf[2 * npad:2 * npad + n_real] = uK64.astype(dtype)
-        buf[3 * npad:3 * npad + 3] = (vhi, dtype.type(value64 - float(vhi)),
-                                      self.reg_coef)
+        with span("gram.init_state", host=True):
+            m64 = A.dot(x0h)
+            b64 = np.asarray(loss.b, np.float64)[:n_real]
+            w64 = (expit(m64) - b64) / n_real  # zeta = 0: no l2 term yet
+            uK64 = A.dot(A.T.dot(w64))
+            ls = np.where(m64 < 0, m64 - np.log1p(np.exp(m64)),
+                          -np.log1p(np.exp(-m64)))
+            value64 = float(np.mean((1.0 - b64) * m64 - ls))
+            if loss.l2:
+                value64 += 0.5 * loss.l2 * float(x0h @ x0h)
+            # value rides as a storage-dtype two-float pair; Ax_lo is
+            # m64 - fl(Ax0) with the same host cast the build uses for Ax0
+            vhi = dtype.type(value64)
+            buf = np.zeros(3 * npad + 3, dtype)
+            buf[:n_real] = (m64 - m64.astype(dtype).astype(np.float64)
+                            ).astype(dtype)
+            buf[npad:npad + n_real] = w64.astype(dtype)
+            buf[2 * npad:2 * npad + n_real] = uK64.astype(dtype)
+            buf[3 * npad:3 * npad + 3] = (
+                vhi, dtype.type(value64 - float(vhi)), self.reg_coef)
         self.loss.reset()
         self.trace.solver_its = [0]
 
@@ -745,21 +748,26 @@ class GramKrylov(Optimizer):
         self.trace.solver_its.append(int(st.solver_it))
 
     def init_run(self, x0, seed):
-        super().init_run(x0, seed)
-        # at x = x0 the checkpoint is closed-form (gamma=1, zeta=0, Ax=Ax0)
-        st = self.state
-        self.trace.xs = [GramCheckpoint(
-            gamma=st.gamma, zeta=st.zeta, Ax=st.Ax,
-            x_sqnorm=self.gd.x0_sqnorm)]
-        self.trace.materializer = RepMaterializer(self._x0_host, self.loss)
+        with span("gram.init_run"):
+            super().init_run(x0, seed)
+            # at x = x0 the checkpoint is closed-form (gamma=1, zeta=0,
+            # Ax=Ax0)
+            st = self.state
+            self.trace.xs = [GramCheckpoint(
+                gamma=st.gamma, zeta=st.zeta, Ax=st.Ax,
+                x_sqnorm=self.gd.x0_sqnorm)]
+            self.trace.materializer = RepMaterializer(self._x0_host,
+                                                      self.loss)
 
     def _ensure_exact_setup(self):
         """Host fp64 constants of the exact corrections (lazy, so
         step-by-step runs can use corrections too)."""
         if self._Ax0_64 is None:
             A = self.loss.A_host
-            self._Ax0_64 = A.dot(self._x0_host)
-            self._b01_64 = np.asarray(self.loss.b, np.float64)[:A.shape[0]]
+            with span("gram.exact_setup", host=True):
+                self._Ax0_64 = A.dot(self._x0_host)
+                self._b01_64 = np.asarray(self.loss.b,
+                                          np.float64)[:A.shape[0]]
             self._f_best_exact = (float(self.state.value)
                                   + float(self.state.value_lo))
 
@@ -774,31 +782,34 @@ class GramKrylov(Optimizer):
         n = A.shape[0]
         full = reg is not None
         l2 = self.loss.l2
-        value64, margins = _exact_value(A, self._Ax0_64, self._b01_64, gamma,
-                                        zeta64, l2, self._x0_host)
-        # exact gradient image: resets the incremental (w_g, uK) invariant
-        w64 = (expit(margins) - self._b01_64) / n
-        if l2:
-            w64 = w64 + l2 * zeta64
-        uK64 = A.dot(A.T.dot(w64))
         cdt = np.dtype(str(st.Ax.dtype).removeprefix("torch."))
         npad = st.Ax.shape[0]
-        vhi = cdt.type(value64)
-        vlo = cdt.type(value64 - float(vhi))
-        self._f_best_exact = min(self._f_best_exact, value64)
-        bhi = cdt.type(self._f_best_exact)
-        blo = cdt.type(self._f_best_exact - float(bhi))
-        buf = np.zeros((6 if full else 5) * npad, cdt)
-        buf[:n] = margins.astype(cdt)
-        buf[npad:npad + n] = (margins
-                              - buf[:n].astype(np.float64)).astype(cdt)
-        buf[2 * npad:2 * npad + n] = w64.astype(cdt)
-        buf[3 * npad:3 * npad + n] = uK64.astype(cdt)
-        buf[4 * npad:4 * npad + 4] = (vhi, vlo, bhi, blo)
-        if full:
-            buf[4 * npad + 4:4 * npad + 8] = (gamma, reg, r0,
-                                              float(solver_it))
-            buf[5 * npad:5 * npad + n] = zeta64.astype(cdt)
+        # the host's part alone: the span closes before the upload
+        with span("gram.rollback" if full else "gram.reinject", host=True):
+            value64, margins = _exact_value(A, self._Ax0_64, self._b01_64,
+                                            gamma, zeta64, l2, self._x0_host)
+            # exact gradient image: resets the incremental (w_g, uK)
+            # invariant
+            w64 = (expit(margins) - self._b01_64) / n
+            if l2:
+                w64 = w64 + l2 * zeta64
+            uK64 = A.dot(A.T.dot(w64))
+            vhi = cdt.type(value64)
+            vlo = cdt.type(value64 - float(vhi))
+            self._f_best_exact = min(self._f_best_exact, value64)
+            bhi = cdt.type(self._f_best_exact)
+            blo = cdt.type(self._f_best_exact - float(bhi))
+            buf = np.zeros((6 if full else 5) * npad, cdt)
+            buf[:n] = margins.astype(cdt)
+            buf[npad:npad + n] = (margins
+                                  - buf[:n].astype(np.float64)).astype(cdt)
+            buf[2 * npad:2 * npad + n] = w64.astype(cdt)
+            buf[3 * npad:3 * npad + n] = uK64.astype(cdt)
+            buf[4 * npad:4 * npad + 4] = (vhi, vlo, bhi, blo)
+            if full:
+                buf[4 * npad + 4:4 * npad + 8] = (gamma, reg, r0,
+                                                  float(solver_it))
+                buf[5 * npad:5 * npad + n] = zeta64.astype(cdt)
         self.state = _apply_correction(
             st, torch.from_numpy(buf).to(st.Ax.device), npad, full=full)
         return value64
@@ -827,8 +838,10 @@ class GramKrylov(Optimizer):
             return
         cert = bool(certify) and self.state.zeta.dtype == torch.float32
         kw = self._step_kwargs()
-        for lr in (True, False) if self.gd.K_lr is not None else (False,):
-            graphs.graph(self.gd, self.state, kw, lr, cert, chunk)
+        with span("gram.warm_fused"):
+            for lr in ((True, False) if self.gd.K_lr is not None
+                       else (False,)):
+                graphs.graph(self.gd, self.state, kw, lr, cert, chunk)
 
     def run_fused(self, x0, it_max, t_max=np.inf, chunk=16, seed=42,
                   certify=False):
@@ -848,6 +861,10 @@ class GramKrylov(Optimizer):
         ``certify``, evaluated after the run), and
         ``["boundary_its"]`` / ``["boundary_fs"]`` the exact values at
         accepted chunk boundaries, which never increase."""
+        with span("gram.run_fused"):
+            return self._run_fused(x0, it_max, t_max, chunk, seed, certify)
+
+    def _run_fused(self, x0, it_max, t_max, chunk, seed, certify):
         self.t_max = t_max
         self.it_max = it_max
         if not self.initialized:
@@ -900,7 +917,8 @@ class GramKrylov(Optimizer):
             if exact:
                 fetch += [self.state.gamma, self.state.reg_coef,
                           self.state.r0, self.state.zeta]
-            got = _fetch(fetch)
+            with span("gram.fetch"):
+                got = _fetch(fetch)
             now = self.elapsed()
             vals = got[0] + got[1]
             gns, dns, sits = got[2], got[3], got[4].astype(np.int64)
@@ -1001,19 +1019,23 @@ class GramKrylov(Optimizer):
         A = self.loss.A_host
         n_real = self.gd.n
         exact_its, exact_fs = [], []
-        for first_it, k, (g_dev, z_dev) in cert_stacks:
-            gammas, zetas = _fetch([g_dev, z_dev])
-            for j in range(k):
-                it = first_it + j
-                v64, _ = _exact_value(A, self._Ax0_64, self._b01_64,
-                                      float(gammas[j]), zetas[j, :n_real],
-                                      self.loss.l2, self._x0_host)
-                exact_its.append(it)
-                exact_fs.append(v64)
-                # the full-resolution trace entry becomes ground truth
-                if it < len(self.trace.loss_vals):
-                    self.trace.loss_vals[it] = v64
-                self._f_best_exact = min(self._f_best_exact, v64)
+        with span("gram.certify"):
+            for first_it, k, (g_dev, z_dev) in cert_stacks:
+                with span("gram.certify.fetch"):
+                    gammas, zetas = _fetch([g_dev, z_dev])
+                with span("gram.certify.eval", host=True):
+                    for j in range(k):
+                        it = first_it + j
+                        v64, _ = _exact_value(
+                            A, self._Ax0_64, self._b01_64, float(gammas[j]),
+                            zetas[j, :n_real], self.loss.l2, self._x0_host)
+                        exact_its.append(it)
+                        exact_fs.append(v64)
+                        # the full-resolution trace entry becomes ground
+                        # truth
+                        if it < len(self.trace.loss_vals):
+                            self.trace.loss_vals[it] = v64
+                        self._f_best_exact = min(self._f_best_exact, v64)
         metrics["exact_its"] = exact_its
         metrics["exact_fs"] = exact_fs
 

@@ -65,6 +65,7 @@ from krylov_crn_tpu_torch.solvers.crn import (
 )
 from krylov_crn_tpu_torch.solvers.krylov_crn import _data_ptrs, _initial_value
 from krylov_crn_tpu_torch.solvers.krylov_gram import _pick
+from krylov_crn_tpu_torch.utils.spans import span
 
 __all__ = ["SSCN", "SSCNState", "sscn_step"]
 
@@ -195,6 +196,9 @@ sscn_step.graph_captures = 0
 sscn_step.graph_replays = 0
 sscn_step.block_replays = 0
 
+# the counter that a step's span reads: the further blocks replayed
+_STEP_COUNTS = ((sscn_step, "block_replays"),)
+
 
 class _SSCNGraphs(SearchGraphs):
     """``sscn_step`` on one card, keyed on the step's keyword arguments,
@@ -230,10 +234,13 @@ def draw_coordinates(generator: torch.Generator, d: int, m: int,
     """m distinct coordinates of range(d) from a CPU generator, moved to
     ``device`` (to a card from pinned memory: the copy does not wait for
     the card)."""
-    I = torch.randperm(d, generator=generator)[:m]
-    if torch.device(device).type == "cuda":
-        return I.pin_memory().to(device, non_blocking=True)
-    return I.to(device)
+    cuda = torch.device(device).type == "cuda"
+    # the host's part alone: the span closes before the copy
+    with span("sscn.draw", host=True):
+        I = torch.randperm(d, generator=generator)[:m]
+        if cuda:
+            I = I.pin_memory()
+    return I.to(device, non_blocking=cuda)
 
 
 class SSCN(Optimizer):
@@ -285,25 +292,26 @@ class SSCN(Optimizer):
         return self._graphs
 
     def step(self):
-        data = self.loss.data
-        kw = dict(l2=self.loss.l2, beta=self.beta,
-                  solver_eps=self.solver_eps,
-                  solver_it_max=self.solver_it_max, ls_max=self.ls_max,
-                  reg_ceil=max(1e6, 1e4 * float(self.reg_coef)))
-        adt = accum_dtype(self.state.x.dtype)
-        reads0 = read_resolved.count
-        I = draw_coordinates(self.generator, data.d, self.subspace_dim,
-                             data.device)
-        graphs = self._step_graphs()
-        if graphs is not None:
-            self.state = graphs.step(data, self.loss.b_t, self.state, I,
-                                     dict(kw, adt=adt))
-        else:
-            self.state = sscn_step(data, self.loss.b_t, self.state, I,
-                                   accum_dtype=adt, **kw)
-        # the flag's reads: one a block, the first block's included
-        self.trace.metrics.setdefault("ls_blocks", []).append(
-            read_resolved.count - reads0 - 1)
+        with span("sscn.step", counts=_STEP_COUNTS):
+            data = self.loss.data
+            kw = dict(l2=self.loss.l2, beta=self.beta,
+                      solver_eps=self.solver_eps,
+                      solver_it_max=self.solver_it_max, ls_max=self.ls_max,
+                      reg_ceil=max(1e6, 1e4 * float(self.reg_coef)))
+            adt = accum_dtype(self.state.x.dtype)
+            reads0 = read_resolved.count
+            I = draw_coordinates(self.generator, data.d, self.subspace_dim,
+                                 data.device)
+            graphs = self._step_graphs()
+            if graphs is not None:
+                self.state = graphs.step(data, self.loss.b_t, self.state, I,
+                                         dict(kw, adt=adt))
+            else:
+                self.state = sscn_step(data, self.loss.b_t, self.state, I,
+                                       accum_dtype=adt, **kw)
+            # the flag's reads: one a block, the first block's included
+            self.trace.metrics.setdefault("ls_blocks", []).append(
+                read_resolved.count - reads0 - 1)
 
     def update_trace(self):
         super().update_trace()

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from krylov_crn_tpu_torch.utils.spans import span
+
 __all__ = ["StepGraphs"]
 
 
@@ -87,8 +89,12 @@ class StepGraphs:
 
     def _record(self, body):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            body()
+        # the span opens before the capture begins, so that it can ask
+        # whether the stream has drained (a query inside a capture breaks
+        # it, and the span then leaves it out)
+        with span("graphs.record", host=True):
+            with torch.cuda.graph(graph, stream=self.stream):
+                body()
         return graph
 
     def _read_counts(self):
@@ -127,12 +133,13 @@ class StepGraphs:
         (graph, the counts a replay adds, the replay count it bumps:
         ``replays``, a ``(holder, attribute)`` pair, where a kind of graph
         has a count of its own, else the owner's)."""
-        self._on_capture_stream(warm)
-        before = self._read_counts()
-        graph = self._record(body)
-        entry = self.graphs[key] = (graph, self._take_counts(before),
-                                    replays or self.replays)
-        _bump(self.captures, 1)
+        with span("graphs.capture"):
+            self._on_capture_stream(warm)
+            before = self._read_counts()
+            graph = self._record(body)
+            entry = self.graphs[key] = (graph, self._take_counts(before),
+                                        replays or self.replays)
+            _bump(self.captures, 1)
         return entry
 
     def replay(self, entry, times: int = 1):
