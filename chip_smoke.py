@@ -31,7 +31,9 @@ Phases (each raises on failure, so the exit code is non-zero):
             (cuSOLVER's eigh and the Newton loop) within the CPU tests'
             tolerances; the kernel, the plain version and torch.linalg.eigh
             timed with CUDA events; one 24-step chunk eager against its
-            graph replays bit for bit, the replays inside
+            graph replays bit for bit (the process's graph cache emptied
+            first, so the capture and its pool are measured), the replays
+            inside
             torch.cuda.set_sync_debug_mode("error"); wall, device time,
             busy share, host launches and SYMV kernels per step, eager and
             replayed (torch.profiler; SYMV 11 times per replayed step);
@@ -72,8 +74,11 @@ Phases (each raises on failure, so the exit code is non-zero):
             20-step CRN runs at line-search blocks 1, 2, 4 and 8;
 5. kernel@K the kernel against plain and fp64 on the built K (they differ
             by less than 1e-6 of the fp64 product's norm), and both timed
-            with CUDA events (median of 25 chained calls); repeated on
-            phase 14's K (n_pad 20224), the other shape SYMV is driven at;
+            with CUDA events (median of 25 chained calls); symv_at (K
+            through a KSlot, the entry of the cached Gram step graphs)
+            against plain and against symv bit for bit, timed against it;
+            repeated on phase 14's K (n_pad 20224), the other shape SYMV
+            is driven at;
 5a. bf16_head GramKrylov(bf16_head=True, m=10) on phase 4's K and f*,
             K_lr = K in bf16: run_fused(it_max=96, chunk=24, certify=True)
             to a certified 1e-8 gap within 96 iterations (the JAX package
@@ -871,6 +876,9 @@ def phase_fused(dev, alg):
           f"({nbytes} bytes, {flops} operations)")
 
     # ---- one chunk: eager against replayed ----
+    # phase main's race filled the process's cache under this key: empty
+    # it, so that what follows is a capture and its pool is measured
+    kg._clear_graph_caches()
     graphs = fresh._step_graphs()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -884,12 +892,15 @@ def phase_fused(dev, alg):
                                              stack_reps=True, use_lr=False,
                                              **kw)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         replayed, r_outs = graphs.run(entry, st0, FUSED_CHUNK, True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    # the first launch of a new graph (its upload included), per step
+    first_replay_ms = (time.perf_counter() - t0) * 1e3 / FUSED_CHUNK
     flat = lambda o: [o[0][0], o[0][1], *o[1:4], *o[4]]
     names = ["value", "value_lo", "grad_norm", "diff_norm", "solver_it",
              "gamma", "zeta"]
@@ -929,7 +940,8 @@ def phase_fused(dev, alg):
                rotations=rotations, ms=min(kms), ms_runs=kms,
                plain_ms=min(pms), plain_ms_runs=pms, eigh_ms=eigh_ms,
                launch_ms=launch_ms, bound_ms=bound_ms, bound_by=bound_by,
-               capture_s=capture_s, pool_mb=pool_mb)
+               capture_s=capture_s, pool_mb=pool_mb,
+               first_replay_ms=first_replay_ms)
     for name in ("eager", "replayed"):
         p = prof[name]
         w = min(walls[name])
@@ -940,6 +952,8 @@ def phase_fused(dev, alg):
               f"{p['device_ms_windows']}), busy {p['device_ms'] / w:.1%}, "
               f"host launches {p['launches']:.1f}, device kernels "
               f"{p['kernels']:.1f}, symv_upper {p['named']:.1f}")
+    print(f"fused: the new graph's first chunk {first_replay_ms:.3f} ms a "
+          f"step (its first launch), later chunks {walls['replayed']} ms")
     if prof["replayed"]["named"] != 11 or prof["eager"]["named"] != 11:
         raise RuntimeError(f"fused: {prof['replayed']['named']} SYMV "
                            f"kernels per replayed step, "
@@ -1710,10 +1724,13 @@ def phase_bf16_head(dev, tag, alg, fp32_rec, it_max):
 
 def phase_kernel_on_K(dev, K, tag="rcv1-like"):
     """SYMV against its plain version, fp64 and ``torch.mv`` on a K that
-    a driven path built (``tag`` names the path's problem), with times."""
+    a driven path built (``tag`` names the path's problem), with times;
+    then ``symv_at``, the entry that the cached Gram step graphs launch
+    (K read through a ``KSlot``), against the plain version and against
+    ``symv`` bit for bit, timed against it."""
     import torch
 
-    from krylov_crn_tpu_torch.ops.symv import symv, symv_plain
+    from krylov_crn_tpu_torch.ops.symv import KSlot, symv, symv_at, symv_plain
     from krylov_crn_tpu_torch.utils.profiling import (
         alternating_ms,
         device_time_per_call,
@@ -1741,9 +1758,25 @@ def phase_kernel_on_K(dev, K, tag="rcv1-like"):
           f"by {bound_by} ({n * (n + 64) * 2 / 1e6:.0f} MB of upper tiles), "
           f"share {bound_ms / ms:.1%} "
           f"-> {n * (n + 64) * 2 / (ms * 1e-3) / 1e9:.0f} GB/s")
+
+    slot = KSlot(n, K.dtype, dev)
+    slot.point(K)
+    ya = symv_at(slot, x)
+    at_err = _hold_to_plain(f"kernel@K {tag} symv_at", ya, yp, ref)
+    if not torch.equal(ya, y):
+        raise RuntimeError(f"kernel@K {tag}: symv_at differs from symv in "
+                           f"{int((ya != y).sum())} of {n} entries")
+    ams, dms = alternating_ms(lambda v: symv_at(slot, v),
+                              lambda v: symv(K, v), x)
+    at_ms, direct_ms = min(ams), min(dms)
+    print(f"kernel@K {tag} n={n}: symv_at bit for bit symv, max |symv_at - "
+          f"plain| {at_err:.3e}; symv_at {ams} ms, symv {dms} ms "
+          f"({at_ms / direct_ms - 1:+.2%})")
     return dict(rel_err=rel, rel_err_plain=rel_plain, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, ms_runs=kms, plain_ms_runs=pms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                at_ms=at_ms, at_ms_runs=ams, at_direct_ms=direct_ms,
+                at_direct_ms_runs=dms, at_max_abs_err=at_err)
 
 
 def phase_small(dev):

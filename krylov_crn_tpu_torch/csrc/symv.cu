@@ -25,6 +25,8 @@
 // is what the workspace and second pass stand in for.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
+// symv_upper_f32_at reads K's address from a device slot, so that a
+// captured step can be replayed on any K of its shape (ops/symv.py, KSlot).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,9 +43,11 @@ __device__ __forceinline__ long long row_start(long long i, long long nb) {
     return i * nb - i * (i - 1) / 2;
 }
 
-__global__ void __launch_bounds__(THREADS)
-symv_upper_tiles(const float* __restrict__ K, const float* __restrict__ x,
-                 float* __restrict__ W, int n, int nb) {
+// pass 1 for the tile of this block (the body of both tile kernels below)
+__device__ __forceinline__ void upper_tile(const float* __restrict__ K,
+                                           const float* __restrict__ x,
+                                           float* __restrict__ W, int n,
+                                           int nb) {
     __shared__ float tile[BS * LD];
     __shared__ float xi[BS];
     __shared__ float xj[BS];
@@ -106,6 +110,24 @@ symv_upper_tiles(const float* __restrict__ K, const float* __restrict__ x,
     }
 }
 
+__global__ void __launch_bounds__(THREADS)
+symv_upper_tiles(const float* __restrict__ K, const float* __restrict__ x,
+                 float* __restrict__ W, int n, int nb) {
+    upper_tile(K, x, W, n, nb);
+}
+
+// The same pass with K's address read from device memory, the slot: one
+// 8-byte load a block (every thread of the block reads the same word). A
+// CUDA graph that launches it reads whichever K the slot names when it is
+// replayed, where one that launches symv_upper_tiles keeps the address it
+// was captured with.
+__global__ void __launch_bounds__(THREADS)
+symv_upper_tiles_at(const long long* __restrict__ slot,
+                    const float* __restrict__ x, float* __restrict__ W,
+                    int n, int nb) {
+    upper_tile(reinterpret_cast<const float*>(*slot), x, W, n, nb);
+}
+
 __global__ void symv_reduce(const float* __restrict__ W,
                             float* __restrict__ y, int n, int nb) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,6 +154,22 @@ int symv_upper_f32(const float* K, const float* x, float* y, float* W,
     const int nb = n / BS;
     const long long tiles = (long long)nb * (nb + 1) / 2;
     symv_upper_tiles<<<(unsigned)tiles, THREADS, 0, s>>>(K, x, W, n, nb);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    symv_reduce<<<(n + 255) / 256, 256, 0, s>>>(W, y, n, nb);
+    return (int)cudaGetLastError();
+}
+
+// symv_upper_f32 for the K whose address the device word *slot holds (a
+// one-element int64 tensor): the same tiles, read at that address, and the
+// same bits. slot, x, y and W are device memory.
+int symv_upper_f32_at(const long long* slot, const float* x, float* y,
+                      float* W, int n, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int nb = n / BS;
+    const long long tiles = (long long)nb * (nb + 1) / 2;
+    symv_upper_tiles_at<<<(unsigned)tiles, THREADS, 0, s>>>(slot, x, W, n,
+                                                           nb);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     symv_reduce<<<(n + 255) / 256, 256, 0, s>>>(W, y, n, nb);

@@ -56,7 +56,7 @@ import torch
 from krylov_crn_tpu_torch.config import as_torch_dtype, resolve_device
 from krylov_crn_tpu_torch.ops.math import accum_dot
 from krylov_crn_tpu_torch.ops.matvec import matvec
-from krylov_crn_tpu_torch.ops.symv import symv
+from krylov_crn_tpu_torch.ops.symv import KSlot, symv, symv_at
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows
 from krylov_crn_tpu_torch.utils.spans import span
 
@@ -425,10 +425,12 @@ def build_gram(A, b, x0, dtype=np.float32, cache_dir: str | None = None,
 
 def k_matvec(K, q, mesh=None):
     """K @ q. One device: the SYMV kernel for tensors on a card, its plain
-    version on the CPU (ops/symv.py). Under a ``mesh`` of several ranks K
-    is this rank's row band: the band's product with the replicated q (the
-    dense matvec kernel on a card, ops/matvec.py), then one all-gather of
-    the ranks' rows into the replicated result.
+    version on the CPU (ops/symv.py); for a ``KSlot`` (one device) the
+    same kernel reading K at the slot's address (``symv_at``). Under a
+    ``mesh`` of several ranks K is this rank's row band: the band's product
+    with the replicated q (the dense matvec kernel on a card,
+    ops/matvec.py), then one all-gather of the ranks' rows into the
+    replicated result.
 
     ``k_matvec.cuda_calls`` and ``k_matvec.band_cuda_calls`` count the
     whole-K and the band calls on a card, so a run can show that each went
@@ -439,7 +441,7 @@ def k_matvec(K, q, mesh=None):
         return all_gather_rows(mesh, matvec(K, q))
     if K.is_cuda:
         k_matvec.cuda_calls += 1
-    return symv(K, q)
+    return symv_at(K, q) if isinstance(K, KSlot) else symv(K, q)
 
 
 k_matvec.cuda_calls = 0

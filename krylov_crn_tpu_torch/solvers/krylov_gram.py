@@ -16,8 +16,12 @@ Between chunk boundaries a card runs without the host, as the JAX
 package's ``lax.scan`` under ``jit`` does: the subproblem of a step (the
 tridiagonal eigh and the candidates' secular Newton) is one launch of the
 kernel ``csrc/subproblem.cu`` with no host read, and on one card
-``run_fused`` replays the step captured as a CUDA graph (``_StepGraphs``;
-``GramKrylov.warm_fused`` captures ahead of a timed run).
+``run_fused`` replays the step captured as a CUDA graph
+(``GramKrylov.warm_fused`` captures ahead of a timed run). As the JAX
+package compiles a chunk program once per process, the process keeps a
+card's step graphs by the step's shape (``_GraphCache``), and a later
+solver of that shape replays them on its own K, which their SYMVs read at
+an address kept on the card (``ops/symv.KSlot``).
 
 Under a mesh (``GramKrylov(mesh=)``) K is row-banded over the ranks and
 every state vector is replicated: each rank runs the same step on the
@@ -43,6 +47,8 @@ the relay-link warm-ups.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
 from typing import NamedTuple
 
@@ -73,7 +79,7 @@ from krylov_crn_tpu_torch.ops.math import (
 )
 from krylov_crn_tpu_torch.ops.matvec import matvec
 from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
-from krylov_crn_tpu_torch.ops.symv import symv
+from krylov_crn_tpu_torch.ops.symv import KSlot, symv
 from krylov_crn_tpu_torch.parallel.mesh import all_gather_rows, check_replicated
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.utils.graphs import StepGraphs
@@ -384,8 +390,8 @@ def gram_krylov_multistep(gd: GramData, state: GramKrylovState,
     per-iteration ((value, value_lo), grad_norm, diff_norm, solver_it)
     stacks, and with ``stack_reps`` each iteration's (gamma, zeta) rep for
     post-hoc exact evaluation. ``GramKrylov.run_fused`` replays captured
-    steps instead on one card (``_StepGraphs``); this is its path under a
-    mesh of several ranks and on the CPU."""
+    steps instead on one card (``GramKrylov._step_graphs``); this is its
+    path under a mesh of several ranks and on the CPU."""
     rows = []
     for _ in range(chunk):
         state = gram_krylov_step(gd, state, **kw)
@@ -415,9 +421,51 @@ _COUNTERS = ((symv, "launches"), (k_matvec, "cuda_calls"),
              (matvec, "shape_launches"), (tridiag_secular, "launches"))
 
 
+def _rows(state: GramKrylovState, stack_reps: bool, cap: int, device):
+    """Zeroed chunk stacks for ``cap`` rows of each field a chunk stacks."""
+    return {n: torch.zeros((cap,) + tuple(getattr(state, n).shape),
+                           dtype=getattr(state, n).dtype, device=device)
+            for n in _ROWS + (_REP_ROWS if stack_reps else ())}
+
+
+def _capture_step(graphs: StepGraphs, gd: GramData, kw: dict, use_lr: bool,
+                  stack_reps: bool, key):
+    """Capture one ``gram_krylov_step`` on ``gd`` as the graph of ``key``
+    over the static buffers of ``graphs`` (``state``, which holds the state
+    the warm step starts from, ``rows`` and ``pos``): the step reads the
+    state, writes it back, writes its rows at ``pos`` and advances it."""
+    names = _ROWS + (_REP_ROWS if stack_reps else ())
+
+    def body():
+        out = gram_krylov_step(gd, graphs.state, use_lr=use_lr, **kw)
+        for n in names:
+            graphs.rows[n].index_copy_(0, graphs.pos,
+                                       getattr(out, n).unsqueeze(0))
+        for dst, src in zip(graphs.state, out):
+            dst.copy_(src)
+        graphs.pos.add_(1)
+
+    return graphs.capture(key, body, lambda: gram_krylov_step(
+        gd, graphs.clone(), use_lr=use_lr, **kw))
+
+
+def _replay_chunk(graphs: StepGraphs, entry, k: int, stack_reps: bool):
+    """k replays of ``entry`` from the state loaded into ``graphs.state``:
+    the final state and the chunk's stacks, as ``gram_krylov_multistep``
+    returns them."""
+    graphs.pos.zero_()
+    graphs.replay(entry, k)
+    return graphs.clone(), _chunk_outs(
+        lambda n: graphs.rows[n][:k].clone(), stack_reps)
+
+
 class _StepGraphs(StepGraphs):
     """``gram_krylov_step`` captured as CUDA graphs (``utils/graphs``),
-    for one GramKrylov instance on one card.
+    for one GramKrylov instance on one card: the graphs of a GramData with
+    a bf16 ``K_lr``. The head's step reads K through cuBLAS
+    (``_refresh_images``), which bakes K's address into the graph, so these
+    graphs serve one GramData. (Every other GramData on one card replays
+    the graphs that the process keeps, ``_GraphCache``.)
 
     Every graph reads the state from the static buffers ``state``, writes
     the new state back into them, writes the step's rows (``_ROWS``, and
@@ -447,12 +495,8 @@ class _StepGraphs(StepGraphs):
             self.state = None  # the rows grow: new buffers, no graph
         if not self.buffers(state):
             return
-        names = _ROWS + (_REP_ROWS if stack_reps or "zeta" in self.rows
-                         else ())
-        cap = max(cap, chunk)
-        self.rows = {n: torch.zeros((cap,) + tuple(getattr(state, n).shape),
-                                    dtype=getattr(state, n).dtype,
-                                    device=self.device) for n in names}
+        self.rows = _rows(state, stack_reps or "zeta" in self.rows,
+                          max(cap, chunk), self.device)
         self.pos = torch.zeros(1, dtype=torch.int64, device=self.device)
 
     def graph(self, gd: GramData, state: GramKrylovState, kw: dict,
@@ -470,19 +514,7 @@ class _StepGraphs(StepGraphs):
         entry = self.graphs.get(key)
         if entry is None:
             self.load(state)
-            names = _ROWS + (_REP_ROWS if stack_reps else ())
-
-            def body():
-                out = gram_krylov_step(gd, self.state, use_lr=use_lr, **kw)
-                for n in names:
-                    self.rows[n].index_copy_(0, self.pos,
-                                             getattr(out, n).unsqueeze(0))
-                for dst, src in zip(self.state, out):
-                    dst.copy_(src)
-                self.pos.add_(1)
-
-            entry = self.capture(key, body, lambda: gram_krylov_step(
-                gd, self.clone(), use_lr=use_lr, **kw))
+            entry = _capture_step(self, gd, kw, use_lr, stack_reps, key)
         return entry
 
     def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
@@ -490,14 +522,129 @@ class _StepGraphs(StepGraphs):
         chunk's stacks, as ``gram_krylov_multistep`` returns them."""
         with span("gram.replay"):
             self.load(state)
-            self.pos.zero_()
-            self.replay(entry, k)
-            return self.clone(), _chunk_outs(
-                lambda n: self.rows[n][:k].clone(), stack_reps)
+            return _replay_chunk(self, entry, k, stack_reps)
+
+
+class _SlotGraphs(StepGraphs):
+    """One graph of a card's ``_GraphCache``: ``gram_krylov_step`` under
+    one key, over static buffers of its own (``state``, the chunk stacks
+    ``rows``, ``pos``, as in ``_StepGraphs``) and ``view``, a GramData of
+    static parts. The view's K is a ``KSlot`` (``ops/symv``), whose SYMV
+    reads K at the address in the slot; its Ax0, b, mask and x0_sqnorm are
+    copies. ``bind`` points the view at the GramData of the chunk at hand,
+    so the graph serves every GramData of its key's shape, and nothing here
+    keeps one alive."""
+
+    def __init__(self, device, stream, gd: GramData, state: GramKrylovState,
+                 stack_reps: bool, chunk: int):
+        super().__init__(device, _COUNTERS,
+                         (gram_krylov_step, "graph_captures"),
+                         (gram_krylov_step, "graph_replays"))
+        self.stream = stream
+        self.view = dataclasses.replace(
+            gd, K=KSlot(gd.n_padded, gd.K.dtype, device),
+            Ax0=torch.empty_like(gd.Ax0), b=torch.empty_like(gd.b),
+            mask=torch.empty_like(gd.mask),
+            x0_sqnorm=torch.empty_like(gd.x0_sqnorm), mesh=None, K_lr=None)
+        self.buffers(state)
+        self.rows = _rows(state, stack_reps, chunk, device)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.entry = None
+
+    def bind(self, gd: GramData):
+        """Point the view at ``gd``, on the current stream: K's address
+        into the slot, the small arrays into the static copies."""
+        view = self.view
+        view.K.point(gd.K)
+        for dst, src in ((view.Ax0, gd.Ax0), (view.b, gd.b),
+                         (view.mask, gd.mask),
+                         (view.x0_sqnorm, gd.x0_sqnorm)):
+            dst.copy_(src)
+
+
+CACHE_SIZE = 4  # graphs a card's _GraphCache keeps
+
+
+class _GraphCache:
+    """The Gram step graphs of one card, kept for the life of the process,
+    as the JAX package keeps its compiled chunk programs: at most
+    ``CACHE_SIZE`` ``_SlotGraphs`` (the one asked for least recently is
+    dropped first), and one capture stream that they share, so one cuBLAS
+    workspace. The graphs of every GramData without a K_lr on this card.
+
+    The key is what the JAX package keys its jit on: n (a Python constant
+    inside the step, ``over_n``), n_pad, the dtypes of the arrays the step
+    reads, the step's keyword arguments, ``stack_reps``, and the rows that
+    the chunk stacks hold. A GramKrylov that follows another of the same
+    shape replays its graph: no eager warm step, no recording, no new
+    stream."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = None
+        self.members = collections.OrderedDict()
+
+    def graph(self, gd: GramData, state: GramKrylovState, kw: dict,
+              use_lr: bool, stack_reps: bool, chunk: int):
+        """The graph of one step under these arguments (``use_lr`` is off
+        without a K_lr), for ``run``: captured at first use (``state`` is
+        loaded for it). The entry holds ``gd`` for ``run``; the cache does
+        not."""
+        key = (gd.n, gd.n_padded,
+               tuple(t.dtype for t in (gd.K, gd.Ax0, gd.b, gd.mask,
+                                       gd.x0_sqnorm)),
+               tuple(sorted(kw.items())), bool(stack_reps), int(chunk))
+        member = self.members.get(key)
+        if member is not None:
+            self.members.move_to_end(key)
+            return member, gd
+        member = _SlotGraphs(self.device, self.stream, gd, state, stack_reps,
+                             chunk)
+        member.bind(gd)
+        member.load(state)
+        member.entry = _capture_step(member, member.view, kw, False,
+                                     stack_reps, key)
+        self.stream = member.stream
+        self.members[key] = member
+        while len(self.members) > CACHE_SIZE:
+            self.members.popitem(last=False)
+        return member, gd
+
+    def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
+        """k replays of ``entry`` from ``state`` on the entry's GramData:
+        the final state and the chunk's stacks, as
+        ``gram_krylov_multistep`` returns them."""
+        member, gd = entry
+        with span("gram.replay"):
+            member.bind(gd)
+            member.load(state)
+            return _replay_chunk(member, member.entry, k, stack_reps)
+
+
+_CACHES: dict = {}  # torch.device -> its _GraphCache
+
+
+def _graph_cache(device) -> _GraphCache:
+    """The process's ``_GraphCache`` of ``device``."""
+    cache = _CACHES.get(device)
+    if cache is None:
+        cache = _CACHES[device] = _GraphCache(device)
+    return cache
+
+
+def _clear_graph_caches():
+    """Drop every cached graph (each card keeps its capture stream)."""
+    for cache in _CACHES.values():
+        cache.members.clear()
 
 
 gram_krylov_step.graph_captures = 0
 gram_krylov_step.graph_replays = 0
+# graphs that ``warm_fused`` asked for and found already captured (a card's
+# _GraphCache held them), beside ``graph_captures``; its span counts both
+gram_krylov_step.graph_reuses = 0
+_WARM_COUNTS = ((gram_krylov_step, "graph_captures"),
+                (gram_krylov_step, "graph_reuses"))
 
 
 def _init_state_packed(Ax0, buf, npad):
@@ -815,13 +962,18 @@ class GramKrylov(Optimizer):
         return value64
 
     def _step_graphs(self):
-        """The instance's step graphs where ``run_fused`` replays them (one
-        card, no mesh of several ranks), else None: gloo's collectives
-        cannot be captured, and the CPU runs eagerly."""
+        """The step graphs that ``run_fused`` replays, or None where it runs
+        eagerly: under a mesh of several ranks (gloo's collectives cannot
+        be captured) and on the CPU. On one card: the instance's own where
+        the GramData has a K_lr (``_StepGraphs``), else the card's graphs
+        that the process keeps (``_GraphCache``)."""
         if self.mesh is not None or not self.state.zeta.is_cuda:
             return None
+        dev = self.state.zeta.device
+        if self.gd.K_lr is None:
+            return _graph_cache(dev)
         if self._graphs is None:
-            self._graphs = _StepGraphs(self.state.zeta.device)
+            self._graphs = _StepGraphs(dev)
         return self._graphs
 
     def warm_fused(self, chunk=16, certify=False):
@@ -829,8 +981,10 @@ class GramKrylov(Optimizer):
         certify=...)`` replays, for both ``use_lr`` phases when the
         GramData has a K_lr, as the JAX package's ``warm_fused`` compiles
         every chunk program: one-time costs that a benchmark keeps out of
-        its timed region. Needs an initialized state (``init_run``
-        first); where ``run_fused`` runs eagerly it does nothing."""
+        its timed region. A graph that the process already holds for this
+        shape (``_GraphCache``) is reused, not captured: its span counts
+        both. Needs an initialized state (``init_run`` first); where
+        ``run_fused`` runs eagerly it does nothing."""
         if self.state is None:
             raise ValueError("warm_fused needs an initialized state")
         graphs = self._step_graphs()
@@ -838,17 +992,20 @@ class GramKrylov(Optimizer):
             return
         cert = bool(certify) and self.state.zeta.dtype == torch.float32
         kw = self._step_kwargs()
-        with span("gram.warm_fused"):
+        with span("gram.warm_fused", counts=_WARM_COUNTS):
             for lr in ((True, False) if self.gd.K_lr is not None
                        else (False,)):
+                c0 = gram_krylov_step.graph_captures
                 graphs.graph(self.gd, self.state, kw, lr, cert, chunk)
+                if gram_krylov_step.graph_captures == c0:
+                    gram_krylov_step.graph_reuses += 1
 
     def run_fused(self, x0, it_max, t_max=np.inf, chunk=16, seed=42,
                   certify=False):
         """Chunked run: ``chunk`` iterations between host syncs, with a
         full-resolution loss trace (wall-times interpolated within
         chunks). On one card each iteration is a replay of the captured
-        step (``_StepGraphs``; ``warm_fused`` captures ahead), so a chunk
+        step (``_step_graphs``; ``warm_fused`` captures ahead), so a chunk
         makes no host read; under a mesh of several ranks and on the CPU
         the steps run eagerly (``gram_krylov_multistep``).
 

@@ -8,8 +8,10 @@ bound by device memory: the kernel (``ops/symv.py``, ``csrc/symv.cu``)
 reads the n(n+64)/2 entries of the upper 64 x 64 tiles once, ``torch.mv``
 (cuBLAS) all n^2, so the speed of light between them is about 2x. Both
 are timed with CUDA events over chained calls, in turns (plain, kernel,
-kernel, plain: ``utils/profiling.alternating_ms``). Prints one JSON
-object that names the card; needs one.
+kernel, plain: ``utils/profiling.alternating_ms``). The slot entry
+(``symv_at``, K's address read from the card) is timed the same way
+against the direct one, and their bits compared. Prints one JSON object
+that names the card; needs one.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ __all__ = ["measure", "main"]
 def measure(n: int, reps: int = 25) -> dict:
     import torch
 
-    from krylov_crn_tpu_torch.ops.symv import BLOCK, symv
+    from krylov_crn_tpu_torch.ops.symv import BLOCK, KSlot, symv, symv_at
     from krylov_crn_tpu_torch.utils.profiling import (
         HBM_BYTES_PER_S,
         alternating_ms,
@@ -49,6 +51,11 @@ def measure(n: int, reps: int = 25) -> dict:
 
     kms, pms = alternating_ms(lambda v: symv(K, v), lambda v: torch.mv(K, v),
                               w, reps=reps)
+    slot = KSlot(n, K.dtype, dev)
+    slot.point(K)
+    same_bits = bool(torch.equal(symv_at(slot, w), symv(K, w)))
+    ams, dms = alternating_ms(lambda v: symv_at(slot, v),
+                              lambda v: symv(K, v), w, reps=reps)
     read = n * (n + BLOCK) // 2 * 4 + 2 * n * 4  # upper tiles, x in, y out
     bound_ms = read / HBM_BYTES_PER_S * 1e3
     return {
@@ -59,6 +66,9 @@ def measure(n: int, reps: int = 25) -> dict:
         "torch_mv_gbps_full_matrix": round(n * n * 4 / min(pms) / 1e6, 1),
         "bound_ms": bound_ms, "share_of_bound": bound_ms / min(kms),
         "speedup": round(min(pms) / min(kms), 3),
+        "symv_at_ms_runs": ams, "symv_direct_ms_runs": dms,
+        "symv_at_same_bits": same_bits,
+        "symv_at_over_direct": min(ams) / min(dms),
     }
 
 

@@ -32,7 +32,9 @@ def _bump(counter, times: int) -> None:
 class StepGraphs:
     """CUDA graphs of a step that reads its state from the static buffers
     ``state`` and writes it back into them, for one owner on one card (the
-    owner holds the graphs; releasing it frees their memory pools).
+    owner holds the graphs; releasing it frees their memory pools). The
+    owner is a solver, or for the Gram Krylov step the process
+    (``solvers/krylov_gram._GraphCache``).
 
     ``counters``: the kernel wrappers' counts as ``(holder, attribute)``
     pairs, each an int or a dict of ints (``matvec.shape_launches``);

@@ -223,7 +223,10 @@ def test_host_spans_around_a_capture_on_the_card(small_problem, cuda_device,
                                                  monkeypatch):
     """A host span inside a capture asks the stream nothing, and the
     capture replays right; a Gram run on the card with spans on has the
-    bits of one with spans off and opens its capture and replay spans."""
+    bits of one with spans off and opens its capture and replay spans
+    (each run from an empty graph cache, so that each captures)."""
+    from krylov_crn_tpu_torch.solvers import krylov_gram as kg
+
     asked = []
     query = torch.cuda.Stream.query
 
@@ -258,6 +261,8 @@ def test_host_spans_around_a_capture_on_the_card(small_problem, cuda_device,
     A, b, x0 = small_problem
 
     def race():
+        # each race captures: the process's graphs of this shape dropped
+        kg._clear_graph_caches()
         alg = GramKrylov(loss=LogisticRegression(A, b, dtype=np.float32,
                                                  device=cuda_device),
                          reg_coef=1e-3, subspace_dim=10, tolerance=0,

@@ -3,8 +3,9 @@
 On the CPU the kernel cannot run: these tests hold its plain version
 against fp64, emulate its two-pass tile walk in PyTorch (the tile
 numbering is the kernel's own closed form), and check that the device K
-build gives the bitwise-symmetric K the kernel relies on. The test marked
-``cuda`` runs the kernel itself and skips without a card.
+build gives the bitwise-symmetric K the kernel relies on; ``symv_at``
+reads the K that its slot names. The tests marked ``cuda`` run the kernel
+itself and skip without a card.
 """
 
 import math
@@ -13,8 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from krylov_crn_tpu_torch.ops.gram import build_K_device, pad_rows
-from krylov_crn_tpu_torch.ops.symv import BLOCK, symv, symv_plain
+from krylov_crn_tpu_torch.ops.gram import build_K_device, k_matvec, pad_rows
+from krylov_crn_tpu_torch.ops.symv import (
+    BLOCK,
+    KSlot,
+    symv,
+    symv_at,
+    symv_plain,
+)
 
 
 def _sym(n, seed):
@@ -116,6 +123,34 @@ def test_device_build_K_bitwise_symmetric():
     assert not K[n:].any() and not K[:, n:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_symv_at_on_cpu_reads_the_K_its_slot_names(dtype):
+    """On the CPU ``symv_at`` (and ``k_matvec`` of a slot) is the plain
+    product with the K the slot last named, uncounted; the slot takes only
+    a K of its shape, dtype and device, refuses to be read before it names
+    one, and keeps no K alive: once the K it names is gone, reading it
+    raises."""
+    (K1, q), (K2, _) = _sym(256, 1), _sym(256, 2)
+    K1, K2, q = K1.to(dtype), K2.to(dtype), q.to(dtype)
+    slot = KSlot(256, dtype, "cpu")
+    with pytest.raises(ValueError):
+        symv_at(slot, q)
+    before = symv.launches
+    for K in (K1, K2, K1):
+        slot.point(K)
+        assert torch.equal(symv_at(slot, q), symv_plain(K, q))
+        assert torch.equal(k_matvec(slot, q), symv_plain(K, q))
+    assert symv.launches == before and not slot.is_cuda
+    for wrong in (K1[:128, :128], K1.T, K1.float() if dtype ==
+                  torch.float64 else K1.double()):
+        with pytest.raises(ValueError):
+            slot.point(wrong)
+    slot.point(K2)
+    del K, K2
+    with pytest.raises(ValueError):
+        symv_at(slot, q)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -170,3 +205,42 @@ def test_symv_on_skew_built_K_on_card(cuda_device):
     torch.cuda.synchronize()
     assert symv.launches == before + 1
     assert _rel(y, K, q) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20480, 20224])
+def test_symv_at_equals_symv_on_card(cuda_device, n):
+    """At the Gram cells' n_pad: the slot entry gives the direct entry's
+    bits on two Ks, called directly and from one CUDA graph captured on
+    the first K and replayed after the slot names the second."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    Ks = []
+    for _ in range(2):
+        B = torch.randn(n, 256, device=cuda_device, generator=gen) / 16.0
+        K = B @ B.T
+        Ks.append((K + K.T) * 0.5)  # bitwise symmetric
+        del B, K
+    q = torch.randn(n, device=cuda_device, generator=gen)
+    slot = KSlot(n, torch.float32, cuda_device)
+    before = symv.launches
+    for K in Ks:
+        slot.point(K)
+        assert torch.equal(symv_at(slot, q), symv(K, q))
+    assert symv.launches == before + 4
+    slot.point(Ks[0])
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        symv_at(slot, q)  # warm on the capture stream
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = symv_at(slot, q)
+    for K in (Ks[1], Ks[0]):
+        slot.point(K)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, symv(K, q))
+    with pytest.raises(TypeError):
+        symv_at(KSlot(n, torch.float64, cuda_device), q.double())
+
