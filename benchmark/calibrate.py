@@ -6,14 +6,10 @@ on many seeds, and the control's on some.
 
 For each seed: the cell's set-up and one solve through its driver module, as
 a run makes them, then that module's ``check`` (the lower reading). For a
-control seed also the control: the reference put in the program's place one
-precision below the configuration's fp32, checked the same way (the upper
-reading):
-
-* Gram race: K's rows as a TF32 product makes them (inputs rounded to a
-  10-bit mantissa, fp32 sums), and the iterates' values in fp32;
-* SSCN: a whole SSCN run of the reference in fp32 with TF32 products, on the
-  solve's own coordinates, and its final value in fp32.
+control seed also the driver's ``control``: the check with the reference put
+in the program's place one precision below the configuration's (the upper
+reading). A driver whose ``check`` takes ``steps`` gives each step's
+readings with ``--steps``.
 
 One JSON line per seed on standard output (and in ``--out``). Needs the
 card that the cell names, or ``--device cpu`` for a rehearsal at a small
@@ -24,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import sys
 import time
@@ -32,29 +29,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from benchmark import harness  # noqa: E402
-
-
-def control(driver_name, ctx, steps=None):
-    import numpy as np
-
-    from benchmark import reference
-
-    if driver_name == "gram_krylov_race":
-        rows = reference.k_rows_tf32(ctx.A, ctx.k_rows)
-        return ctx.driver.check(ctx, precision=np.float32, k_rows=rows)
-    tr = ctx.traffic
-    seed = ctx.kept["seed"]
-    coords = reference.coordinates(seed, ctx.A.shape[1],
-                                   int(tr["subspace_dim"]),
-                                   len(ctx.kept["xs"]) - 1)
-    xs = reference.sscn_solve(ctx.A, ctx.b, ctx.x0, coords,
-                              float(tr["reg_coef"]), beta=float(tr["beta"]),
-                              ls_max=int(tr["ls_max"]), dtype=np.float32,
-                              tf32=True)
-    f32 = reference.value(ctx.A, reference.labels01(ctx.b), xs[-1],
-                          np.float32)
-    return ctx.driver.check(ctx, kept=dict(seed=seed, xs=xs, f_final=f32),
-                            steps=steps)
 
 
 def one(workload, seed, with_control, root, device, steps=False,
@@ -67,9 +41,9 @@ def one(workload, seed, with_control, root, device, steps=False,
     driver = harness.load_module(cell["bench"] / "drivers"
                                  / f"{cell['traffic']['driver']}.py")
     ctx = harness.Context(cell, seed, dev)
-    ctx.driver = driver
-    sscn = cell["traffic"]["driver"] == "sscn_run"
-    per_step = {"program": [], "control": []} if steps and sscn else None
+    takes_steps = "steps" in inspect.signature(driver.check).parameters
+    per_step = {"program": [], "control": []} if steps and takes_steps \
+        else None
 
     def diag(name):
         return {"steps": per_step[name]} if per_step else {}
@@ -85,8 +59,7 @@ def one(workload, seed, with_control, root, device, steps=False,
         "facts": ctx.facts, "program": driver.check(ctx, **diag("program"))}
     if with_control:
         t0 = time.perf_counter()
-        out["control"] = control(cell["traffic"]["driver"], ctx,
-                                 **diag("control"))
+        out["control"] = driver.control(ctx, **diag("control"))
         out["control_s"] = time.perf_counter() - t0
     if per_step:
         out["steps"] = per_step
@@ -102,7 +75,8 @@ def main(argv=None):
     ap.add_argument("--root", default=str(harness.ROOT))
     ap.add_argument("--device")
     ap.add_argument("--steps", action="store_true",
-                    help="SSCN: every step's readings in the output")
+                    help="every step's readings in the output, where the "
+                         "driver's check gives them")
     ap.add_argument("--traffic", default="{}",
                     help="JSON object over the traffic's keys, e.g. "
                          "'{\"dtype\": \"float64\"}' for the program's fp64 run")

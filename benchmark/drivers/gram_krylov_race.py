@@ -1,13 +1,14 @@
 """Driver of the Gram Krylov race: ``GramKrylov`` solves back to back.
 
-A solve is a user's job: a fresh K build (``init_run``), the capture of the
-race's step graphs on that K (``warm_fused``; the program keys its graphs on
-K's address, so a new K is captured anew), and ``run_fused`` with the
-traffic's chunk, iteration budget and certification, which returns after
-every iterate has been evaluated exactly in fp64 on the host. Each solve's
-certified values are held against the benchmark's own f* (``reference.fstar``,
-worked out from the generated data once the window has closed, ``finish``),
-never the program's running best. The warm solve of the set-up runs one
+A solve is a user's job: a fresh K build (``init_run``), ``warm_fused``
+(which finds the race's step graphs in the process's cache, keyed on K's
+shape with K read through a slot on the card, so only the set-up's warm
+solve captures them), and ``run_fused`` with the traffic's chunk, iteration
+budget and certification, which returns after every iterate has been
+evaluated exactly in fp64 on the host. Each solve's certified values are
+held against the benchmark's own f* (``reference.fstar``, worked out from
+the generated data once the window has closed, ``finish``), never the
+program's running best. The warm solve of the set-up runs one
 iteration of the same calls: every kernel, graph shape and host path, without
 the host certification of a whole chunk.
 
@@ -19,7 +20,10 @@ certified iterates' values and their (gamma, zeta) reps, and a sample of K's
 rows. The check recomputes those rows of A A^T and the values of the
 crossing, the best, the last and three drawn iterates in fp64
 (``reference``). The best certified iterate is the solve's answer: past the
-crossing, iterates within a chunk may rise again at the fp32 floor.
+crossing, iterates within a chunk may rise again at the fp32 floor. The
+control (``control``) puts the reference one precision below fp32 in the
+program's place: K's rows as a TF32 product makes them, and the iterates'
+values in fp32.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from benchmark import datagen, reference
 
 K_ROWS = 64  # rows of K compared
 DRAWN_ITS = 3  # drawn iterates compared, beside the crossing, best and last
+# the traffic at a CPU test's size: the race runs whole on a tiny problem
+TINY = {}
 
 
 def setup(ctx):
@@ -197,3 +203,12 @@ def check(ctx, kept=None, precision=np.float64, k_rows=None):
         cert.append(abs(f_prog - f_ref[it]) / abs(f_ref[it]))
     return {"k_err": k_err, "cert_err": max(cert),
             "best_gap": f_ref[best] - ctx.fstar}
+
+
+def control(ctx, steps=None):
+    """The check with the control in the program's place: K's rows as a
+    TF32 product makes them (inputs rounded to a 10-bit mantissa, fp32
+    sums), and the kept iterates' values in fp32. A race has no per-step
+    readings: ``steps`` is left empty."""
+    rows = reference.k_rows_tf32(ctx.A, ctx.k_rows)
+    return check(ctx, precision=np.float32, k_rows=rows)

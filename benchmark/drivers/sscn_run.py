@@ -12,7 +12,9 @@ the coordinates the seed gives (``reference.sscn_follow``): the sampled
 gradient and Hessian, its eigenpairs, each trial's secular root and step and
 the line search's choice, and where the step lands in loss. Following from the program's iterates skips the
 program's carried margins, so the final value the program carries is held to
-the reference's value of its final iterate on its own.
+the reference's value of its final iterate on its own. The control
+(``control``) puts in the program's place a whole SSCN run of the reference
+in fp32 with TF32 products, on the solve's own coordinates.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import time
 import numpy as np
 
 from benchmark import datagen, reference
+
+# the traffic at a CPU test's size: m = 100 for 20 steps
+TINY = {"subspace_dim": 100, "steps": 20}
 
 
 def solve_seed(seed: int, i: int) -> int:
@@ -113,3 +118,22 @@ def check(ctx, kept=None, steps=None):
     f_ref = reference.value(ctx.A, reference.labels01(ctx.b), xs[-1])
     return {"step_value_err": step_value_err,
             "value_err": abs(kept["f_final"] - f_ref) / abs(f_ref)}
+
+
+def control(ctx, steps=None):
+    """The check with the control in the program's place: a whole SSCN run
+    of the reference in fp32 with TF32 products, on the kept solve's own
+    coordinates, and its final value in fp32. ``steps`` receives each
+    step's readings."""
+    tr = ctx.traffic
+    seed = ctx.kept["seed"]
+    coords = reference.coordinates(seed, ctx.A.shape[1],
+                                   int(tr["subspace_dim"]),
+                                   len(ctx.kept["xs"]) - 1)
+    xs = reference.sscn_solve(ctx.A, ctx.b, ctx.x0, coords,
+                              float(tr["reg_coef"]), beta=float(tr["beta"]),
+                              ls_max=int(tr["ls_max"]), dtype=np.float32,
+                              tf32=True)
+    f32 = reference.value(ctx.A, reference.labels01(ctx.b), xs[-1],
+                          np.float32)
+    return check(ctx, kept=dict(seed=seed, xs=xs, f_final=f32), steps=steps)

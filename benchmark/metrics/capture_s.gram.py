@@ -1,7 +1,7 @@
-"""capture_s.gram: the host clock around ``GramKrylov.warm_fused``, the capture
-of the race's step graphs on the solve's fresh K (the program keys its
-graphs on K's address), ending in a synchronize; the mean over the window's
-solves."""
+"""capture_s.gram: the host clock around ``GramKrylov.warm_fused``, ending in
+a synchronize: a lookup of the race's step graphs in the process's cache
+(keyed on K's shape; the set-up's warm solve captured them); the mean over
+the window's solves."""
 
 from benchmark.harness import mean_of
 

@@ -1,6 +1,6 @@
-"""solve_s: per solve, from its start (the K build for Gram, ``Optimizer.run``
-for SSCN) until the solver returns its result, certification included; the
-mean over every whole solve of the window."""
+"""solve_s: per solve, from the solve's start as its driver defines it until
+the solver returns its result, certification included; the mean over every
+whole solve of the window."""
 
 from benchmark.harness import mean_of
 

@@ -2,8 +2,10 @@
 
 The ``cuda`` tests run a cell on a card and skip without one. ``tiny_root``
 is a benchmark root whose configurations keep the shipped files' keys at a
-size a CPU test holds (1,200 x 5,000, 30 topics; SSCN m = 100 for 20 steps),
-with the shipped traffic's drivers, metric readers and limits.
+size a CPU test holds, each at its generator's tiny shape
+(``datagen.GENERATORS``), and whose traffic keeps the shipped mixes with
+each driver's own ``TINY`` settings over them, with the shipped drivers,
+metric readers and limits.
 """
 
 import json
@@ -17,9 +19,7 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-TINY = dict(n_rows=1200, n_features=5000, nnz_drawn=60000)
-TINY_TOPICS = dict(R=30, n_clusters=5)
-TINY_SSCN = dict(subspace_dim=100, steps=20)
+from benchmark import datagen, harness  # noqa: E402
 
 
 def pytest_configure(config):
@@ -36,13 +36,13 @@ def make_root(dst: Path) -> Path:
         shutil.copytree(REPO / "benchmark" / sub, bench / sub)
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
-        cfg = json.loads((REPO / c["file"]).read_text())
-        cfg.update(TINY, topic_params=dict(cfg["topic_params"], **TINY_TOPICS))
+        cfg = datagen.tiny(json.loads((REPO / c["file"]).read_text()))
         (dst / c["file"]).write_text(json.dumps(cfg))
     for t in {w["traffic"] for w in spec["workloads"]}:
         tr = json.loads((REPO / "benchmark/traffic" / f"{t}.json").read_text())
-        if tr["driver"] == "sscn_run":
-            tr.update(TINY_SSCN)
+        driver = harness.load_module(REPO / "benchmark/drivers"
+                                     / f"{tr['driver']}.py")
+        tr.update(driver.TINY)
         (bench / "traffic" / f"{t}.json").write_text(json.dumps(tr))
     for w in spec["workloads"]:
         shutil.copy(REPO / "benchmark/limits" / f"{w['name']}.json",

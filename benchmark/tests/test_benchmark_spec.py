@@ -96,6 +96,15 @@ def test_every_name_has_its_files():
         assert (bench / "drivers" / f"{tr['driver']}.py").exists()
 
 
+@pytest.mark.parametrize("path", sorted(
+    p.name for p in (REPO / "benchmark" / "drivers").glob("*.py")))
+def test_every_driver_brings_its_calls_tiny_settings_and_control(path):
+    driver = harness.load_module(REPO / "benchmark" / "drivers" / path)
+    for name in ("setup", "solve", "traced", "release", "check", "control"):
+        assert callable(getattr(driver, name)), name
+    assert isinstance(driver.TINY, dict)
+
+
 def test_file_names_are_made_of_name_characters():
     for p in (REPO / "benchmark").rglob("*"):
         if "__pycache__" in p.parts or p.is_dir():
@@ -144,6 +153,11 @@ def test_result_line_keys(tiny_root):
 
 
 def test_forbidden_modules_compare_top_level_names(monkeypatch):
+    # whatever this process imported before (the JAX package's tests may
+    # share it) is left out for the test's length
+    for k in list(sys.modules):
+        if k.split(".", 1)[0] in harness.FORBIDDEN:
+            monkeypatch.delitem(sys.modules, k, raising=False)
     fake = {"krylov_crn_tpu_torch": 1, "krylov_crn_tpu_torch.ops": 1,
             "jaxtyping": 1, "flaxen.x": 1}
     for k in fake:
