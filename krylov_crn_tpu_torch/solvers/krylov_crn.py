@@ -28,7 +28,9 @@ On one card ``CubicKrylov.step`` replays the step captured as a CUDA
 graph (``utils/graphs``), on the dense branch and on the CSR branch
 alike: a CSR product makes no host read once its first call in a process
 has set it up, and the capture's eager warm-up step makes that call. On
-the CPU and on row-sharded data the step runs eagerly.
+the CPU and on row-sharded data the step runs eagerly. Spans
+(``utils/spans``): ``krylov.init_state`` (the product and value at x0) and
+``krylov.step``, which counts the matvec kernel's launches.
 
 On row-sharded data (``parallel.sharded.ShardedDual``) x, the Lanczos
 basis and every subspace quantity are replicated, while the margins ``Ax``
@@ -65,6 +67,7 @@ from krylov_crn_tpu_torch.ops.subproblem import tridiag_secular
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_gram import _pick
 from krylov_crn_tpu_torch.utils.graphs import StepGraphs
+from krylov_crn_tpu_torch.utils.spans import span
 
 __all__ = ["CubicKrylov", "KrylovState", "krylov_step"]
 
@@ -210,6 +213,8 @@ krylov_step.graph_replays = 0
 # the step's kernels, by their Python counters (utils/graphs)
 _COUNTERS = ((matvec, "launches"), (matvec, "shape_launches"),
              (dense_matvec, "cuda_calls"), (tridiag_secular, "launches"))
+# what a step's span counts: the dense branch's products
+_STEP_COUNTS = ((matvec, "launches"),)
 
 
 def _data_ptrs(data: DualSparse):
@@ -297,7 +302,8 @@ class CubicKrylov(Optimizer):
         self._graphs: _StepGraphs | None = None
 
     def init_state(self, x0, seed):
-        state = initial_state(self.loss, x0, self.reg_coef, KrylovState)
+        with span("krylov.init_state"):
+            state = initial_state(self.loss, x0, self.reg_coef, KrylovState)
         self.loss.reset()
         self.trace.solver_its = [0]
         return state
@@ -323,12 +329,13 @@ class CubicKrylov(Optimizer):
         return self._graphs
 
     def step(self):
-        data, b, kw = self.loss.data, self.loss.b_t, self._step_kwargs()
-        graphs = self._step_graphs()
-        if graphs is not None:
-            self.state = graphs.step(data, b, self.state, kw)
-        else:
-            self.state = krylov_step(data, b, self.state, **kw)
+        with span("krylov.step", counts=_STEP_COUNTS):
+            data, b, kw = self.loss.data, self.loss.b_t, self._step_kwargs()
+            graphs = self._step_graphs()
+            if graphs is not None:
+                self.state = graphs.step(data, b, self.state, kw)
+            else:
+                self.state = krylov_step(data, b, self.state, **kw)
 
     def update_trace(self):
         super().update_trace()

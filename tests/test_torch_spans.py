@@ -4,15 +4,21 @@ Off, a span is one shared object that does nothing; on (``enable()``, or
 while a torch profiler is active) it logs its parent, its times on the
 profiler's clock, whether the card had drained at a host span's entry,
 and what the counters it names counted. A CPU GramKrylov run and an SSCN
-run open the spans where their host work happens, and a run with spans on
-has the bits of a run with spans off. The test marked ``cuda`` opens host
-spans around a graph capture on the card."""
+run open the spans where their host work happens, a d-space CubicKrylov
+run one span a step, and a run with spans on has the bits of a run with
+spans off. The test marked ``cuda`` opens host spans around a graph
+capture on the card."""
 
 import numpy as np
 import pytest
 import torch
 
-from krylov_crn_tpu_torch import SSCN, GramKrylov, LogisticRegression
+from krylov_crn_tpu_torch import (
+    SSCN,
+    CubicKrylov,
+    GramKrylov,
+    LogisticRegression,
+)
 from krylov_crn_tpu_torch.utils import spans
 
 CPU = "cpu"  # the library's default device is the card
@@ -209,6 +215,40 @@ def test_an_sscn_run_draws_inside_its_steps(small_problem):
     # eager on the CPU: no further-block graph replayed
     assert all(s.counts == {"sscn_step.block_replays": 0} for s in steps)
     assert _names(recs).count("run.checkpoint") == 5
+
+
+def _krylov(small_problem, steps):
+    """A CubicKrylov run on the dense branch (d = 60 <= 2048, as w8a)."""
+    A, b, x0 = small_problem
+    alg = CubicKrylov(loss=LogisticRegression(A, b, dtype=np.float32,
+                                              device=CPU),
+                      reg_coef=1e-3, subspace_dim=10, tolerance=0)
+    assert alg.loss.data.dense is not None
+    return alg, alg.run(x0, it_max=steps)
+
+
+def test_a_dspace_run_opens_a_span_a_step_and_keeps_its_bits(small_problem):
+    off_alg, off = _krylov(small_problem, 5)
+    assert spans.records() == []
+    spans.enable()
+    alg, on = _krylov(small_problem, 5)
+    recs = spans.records()
+    init = [r for r in recs if r.name == "krylov.init_state"]
+    steps = [r for r in recs if r.name == "krylov.step"]
+    assert len(init) == 1 and len(steps) == 5
+    # the state at x0 before every step; neither opens inside another span
+    # or is a host span
+    assert all(init[0].end_ns <= s.start_ns for s in steps)
+    assert all(r.parent is None and not r.host for r in init + steps)
+    # eager on the CPU: the counter is there, and counts nothing
+    assert all(s.counts == {"matvec.launches": 0} for s in steps)
+    # the same bits with spans on as off
+    assert on.its == off.its
+    for x_on, x_off in zip(on.xs[1:], off.xs[1:]):
+        assert torch.equal(x_on, x_off)
+    for f in alg.state._fields:
+        assert torch.equal(getattr(alg.state, f),
+                           getattr(off_alg.state, f)), f
 
 
 @pytest.fixture
