@@ -6,10 +6,19 @@
 Phases (each raises on failure, so the exit code is non-zero):
 
 1. device   require CUDA; print the card's name and power limit;
-2. build    compile csrc/symv.cu, csrc/matvec.cu, csrc/subproblem.cu and
-            csrc/eigh.cu (the last two with --fmad=false) with nvcc, one
-            process each, started together (into
-            krylov_crn_tpu_torch/_build);
+2. build    compile csrc/symv.cu, csrc/matvec.cu, csrc/subproblem.cu,
+            csrc/eigh.cu and csrc/fold.cu (the last three with
+            --fmad=false) with nvcc, one process each, started together
+            (into krylov_crn_tpu_torch/_build);
+2a. fold    the fold kernel (csrc/fold.cu: sum2 and dot2 of a batch of
+            rows, one launch) at the shapes the folds meet, fp32 and
+            fp64, dot2 with a broadcast 1-D operand, and on inf, NaN and
+            signed zeros: bit for bit its plain version (ops/math.py) on
+            the CPU and on the card; 25 calls timed at (2, 20480),
+            (21, 20480) and (21, 49749) beside the plain version,
+            torch.sum and the bound by bytes. From here on a CUDA tensor
+            that reaches the plain folds raises; each main-path phase
+            records the kernel's launches (counters zeroed before it);
 3. kernel   SYMV kernel against its plain PyTorch version and an fp64
             product on bitwise-symmetric random K (one tile, an odd tile
             count, n_pad = 20480): relative error below 1e-6, bitwise
@@ -36,7 +45,8 @@ Phases (each raises on failure, so the exit code is non-zero):
             inside
             torch.cuda.set_sync_debug_mode("error"); wall, device time,
             busy share, host launches and SYMV kernels per step, eager and
-            replayed (torch.profiler; SYMV 11 times per replayed step);
+            replayed (torch.profiler; SYMV 11 times and the fold kernel
+            24 times per replayed step);
 4b. dspace_fused the d-space Krylov step (w8a-like, fp32, m=10, the 21
             line-search candidates at once) 24 steps eager against 24
             replays of the captured step, bit for bit, the replays inside
@@ -436,20 +446,21 @@ def phase_device():
 def phase_build():
     from krylov_crn_tpu_torch.ops import _kernels
     from krylov_crn_tpu_torch.ops import eigh as eigh_mod
+    from krylov_crn_tpu_torch.ops import math as math_mod
     from krylov_crn_tpu_torch.ops import matvec as matvec_mod
     from krylov_crn_tpu_torch.ops import subproblem as subproblem_mod
     from krylov_crn_tpu_torch.ops import symv as symv_mod
 
     t0 = time.perf_counter()
-    libs = (symv_mod, matvec_mod, subproblem_mod, eigh_mod)
+    libs = (symv_mod, matvec_mod, subproblem_mod, eigh_mod, math_mod)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         for f in [pool.submit(mod._library) for mod in libs]:
             f.result()
     s = time.perf_counter() - t0
     nv = {k: round(v, 3) for k, v in _kernels.last_build_seconds.items()}
-    print(f"build: symv.cu, matvec.cu, subproblem.cu and eigh.cu in {s:.3f} "
-          f"s (nvcc {nv}; subproblem.cu and eigh.cu with "
-          f"{_kernels.KERNEL_FLAGS['subproblem']})")
+    print(f"build: symv.cu, matvec.cu, subproblem.cu, eigh.cu and fold.cu "
+          f"in {s:.3f} s (nvcc {nv}; subproblem.cu, eigh.cu and fold.cu "
+          f"with {_kernels.KERNEL_FLAGS['subproblem']})")
     for name, log in _kernels.last_build_log.items():
         for fn, regs in _ptxas_registers(log):
             print(f"build: {name}.cu {fn}: {regs}")
@@ -499,6 +510,124 @@ def phase_kernel(dev):
                       max_abs_err=err)
         del K
     return out
+
+
+# the shapes the folds meet: one value; a row short of the lanes; rep_dot's
+# two rows (news20-like's and rcv1-like's n_pad); the Gram step's 21
+# candidates; the d-space step's 21 candidates at w8a's n
+FOLD_SHAPES = ((1, 1), (3, 1023), (2, 20224), (2, 20480), (21, 20480),
+               (21, 49749))
+FOLD_TIMED = ((2, 20480), (21, 20480), (21, 49749))
+
+
+def _fold_operands(shape, dtype, seed):
+    """(x, y): x one row of n, y ``shape``; mixed signs over ten decades."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mags = lambda s: rng.standard_normal(s) * 10.0 ** rng.uniform(-5, 5, s)
+    return (torch.from_numpy(mags(shape[-1])).to(dtype),
+            torch.from_numpy(mags(shape)).to(dtype))
+
+
+def _fold_special(dtype, kind):
+    """(x, y) of (4, 3000) with rows of -0 (``signed_zero``), or an inf or
+    NaN among finite values and inf - inf in one row."""
+    x, y = _fold_operands((4, 3000), dtype, 17)
+    x = x.expand(4, 3000).clone()
+    if kind == "signed_zero":
+        x[:2] = -0.0
+        x[2, :1024] = -0.0
+        y[0], y[1] = -0.0, 0.0
+    else:
+        v = float("inf") if kind == "inf" else float("nan")
+        x[0, 5], x[1, 1500], y[2, 2999] = v, -v, v
+        x[3, 7], x[3, 2048] = v, -v
+    return x, y
+
+
+def phase_fold(dev):
+    """The fold kernel against its plain version, and its times (see the
+    module's docstring, phase 2a)."""
+    import torch
+
+    from krylov_crn_tpu_torch.ops import math as tm
+    from krylov_crn_tpu_torch.utils.profiling import (
+        HBM_BYTES_PER_S,
+        alternating_ms,
+        device_time_per_call,
+    )
+
+    launches0 = tm.fold.launches
+    max_abs_err = 0.0
+    cases = []
+    for dt in (torch.float32, torch.float64):
+        for i, shape in enumerate(FOLD_SHAPES):
+            cases.append((f"{shape} {dt}", *_fold_operands(shape, dt, i)))
+        for kind in ("inf", "nan", "signed_zero"):
+            cases.append((f"{kind} {dt}", *_fold_special(dt, kind)))
+    for tag, x, y in cases:
+        xc, yc = x.to(dev), y.to(dev)
+        got = tm.sum2(yc) + tm.dot2(xc, yc)
+        on_card = tm._lane_fold(yc) + tm.dot2_plain(xc, yc)
+        on_cpu = tm._lane_fold(y) + tm.dot2_plain(x, y)
+        torch.cuda.synchronize()
+        for name, g, c, h in zip(("sum2 hi", "sum2 lo", "dot2 hi",
+                                  "dot2 lo"), got, on_card, on_cpu):
+            g = g.cpu().numpy()
+            if not (_same_bits(g, h.numpy())
+                    and _same_bits(g, c.cpu().numpy())):
+                raise RuntimeError(f"fold: {tag}: the kernel's {name} "
+                                   f"differs from its plain version")
+            both = np.isfinite(g) & np.isfinite(h.numpy())
+            if both.any():
+                max_abs_err = max(max_abs_err, float(np.abs(
+                    g[both].astype(np.float64)
+                    - h.numpy()[both].astype(np.float64)).max()))
+    checked = tm.fold.launches - launches0
+    if checked != 2 * len(cases):
+        raise RuntimeError(f"fold: {checked} launches for {len(cases)} "
+                           f"cases of sum2 and dot2")
+    print(f"fold: sum2 and dot2 on {len(cases)} cases (shapes "
+          f"{FOLD_SHAPES} and inf, NaN, signed zeros; fp32 and fp64; dot2 "
+          f"with a broadcast 1-D operand): bit for bit the plain version on "
+          f"the CPU and on the card, one launch a call")
+
+    out = {"cases": len(cases), "max_abs_err": max_abs_err, "times": {}}
+    for shape in FOLD_TIMED:
+        x, y = (t.to(dev) for t in _fold_operands(shape, torch.float32, 0))
+        rows, n = shape
+        for op, kernel, plain, nbytes in (
+                ("sum2", lambda v: tm.fold(v)[0],
+                 lambda v: tm._lane_fold(v)[0], 4 * (rows * n + 2 * rows)),
+                ("dot2", lambda v: tm.fold(x, v)[0],
+                 lambda v: tm.dot2_plain(x, v)[0],
+                 4 * (n + rows * n + 2 * rows))):
+            kms, pms = alternating_ms(kernel, plain, y)
+            lib_ms = device_time_per_call(lambda v: torch.sum(v, -1), y)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            out["times"][f"{op} {rows}x{n}"] = dict(
+                ms=min(kms), ms_runs=kms, plain_ms=min(pms), plain_ms_runs=pms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes",
+                nbytes=nbytes)
+            print(f"fold: {op} ({rows}, {n}) fp32: kernel {kms} ms, plain "
+                  f"{pms} ms, torch.sum {lib_ms:.4f} ms, bound {bound_ms:.3e}"
+                  f" ms by bytes ({nbytes} bytes)")
+    return out
+
+
+def _plain_folds_refuse_the_card():
+    """From here on a CUDA tensor that reaches the plain folds raises:
+    every fold on the card is the kernel's."""
+    from krylov_crn_tpu_torch.ops import math as tm
+
+    def guarded(x, *args, _plain=tm._lane_fold, **kw):
+        if x.is_cuda:
+            raise RuntimeError("chip_smoke: a CUDA tensor reached the plain "
+                               "_lane_fold")
+        return _plain(x, *args, **kw)
+
+    tm._lane_fold = guarded
 
 
 def _certified_crossing(tag, trace, f_star, it_max):
@@ -641,7 +770,8 @@ def _gram_race(tag, name, dev):
                      graph_replays=cnt["graph_replays"],
                      race_graph_replays=race["graph_replays"],
                      graph_captures=cnt["graph_captures"],
-                     subproblem_launches=cnt["subproblem"])
+                     subproblem_launches=cnt["subproblem"],
+                     fold_launches=cnt["fold"])
 
 
 def phase_main(dev):
@@ -751,7 +881,7 @@ def _profile_window(fn, steps, kernel):
             torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
-    device_us = kernels = named = 0
+    device_us = kernels = named = folds = 0
     launches = -PROFILE_PAD
     for ev in prof.key_averages():
         if "spin_kernel" in ev.key:  # the pad
@@ -762,19 +892,22 @@ def _profile_window(fn, steps, kernel):
             kernels += ev.count
             if kernel in ev.key:
                 named += ev.count
+            if "fold_kernel" in ev.key:
+                folds += ev.count
         elif ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaGraphLaunch", "cudaMemcpyAsync",
                                 "cudaMemsetAsync")):
             launches += ev.count
     return dict(device_ms=device_us / 1e3 / steps, kernels=kernels / steps,
-                named=named / steps, launches=launches / steps)
+                named=named / steps, folds=folds / steps,
+                launches=launches / steps)
 
 
 def _profile_steps(fn, steps, kernel="symv_upper_tiles"):
     """Per step of ``fn()`` (``steps`` steps) under torch.profiler: device
     ms (every kernel, copy and fill), device kernels, kernels whose name
-    holds ``kernel`` (``named``) and host launch calls (kernels, graphs,
-    copies, fills). Two traced runs, each after PROFILE_PAD throwaway
+    holds ``kernel`` (``named``), fold kernels (``folds``) and host launch
+    calls (kernels, graphs, copies, fills). Two traced runs, each after PROFILE_PAD throwaway
     kernels. The counts and ``device_ms`` are those of the window with
     more device records, because the tracer can lose a window's kernel
     records but never adds any (why it loses them is not known);
@@ -951,7 +1084,8 @@ def phase_fused(dev, alg):
               f"{p['device_ms']:.3f} ms (windows "
               f"{p['device_ms_windows']}), busy {p['device_ms'] / w:.1%}, "
               f"host launches {p['launches']:.1f}, device kernels "
-              f"{p['kernels']:.1f}, symv_upper {p['named']:.1f}")
+              f"{p['kernels']:.1f}, symv_upper {p['named']:.1f}, fold "
+              f"{p['folds']:.1f}")
     print(f"fused: the new graph's first chunk {first_replay_ms:.3f} ms a "
           f"step (its first launch), later chunks {walls['replayed']} ms")
     if prof["replayed"]["named"] != 11 or prof["eager"]["named"] != 11:
@@ -959,6 +1093,10 @@ def phase_fused(dev, alg):
                            f"kernels per replayed step, "
                            f"{prof['eager']['named']} per eager step (want "
                            "11)")
+    if prof["replayed"]["folds"] != 24 or prof["eager"]["folds"] != 24:
+        raise RuntimeError(f"fused: {prof['replayed']['folds']} / "
+                           f"{prof['eager']['folds']} fold kernels per "
+                           "replayed / eager step (want 24)")
     del fresh, graphs, entry
     torch.cuda.empty_cache()
     return out
@@ -1114,7 +1252,8 @@ def phase_dspace_fused(dev, alg):
               f"{p['device_ms']:.3f} ms (windows "
               f"{p['device_ms_windows']}), busy {p['device_ms'] / w:.1%}, "
               f"host launches {p['launches']:.1f}, device kernels "
-              f"{p['kernels']:.1f}, matvec_stream {p['named']:.1f}")
+              f"{p['kernels']:.1f}, matvec_stream {p['named']:.1f}, fold "
+              f"{p['folds']:.1f}")
     if prof["replayed"]["named"] != 21 or prof["eager"]["named"] != 21:
         raise RuntimeError(f"dspace_fused: {prof['replayed']['named']} / "
                            f"{prof['eager']['named']} matvec kernels per "
@@ -1715,6 +1854,7 @@ def phase_bf16_head(dev, tag, alg, fp32_rec, it_max):
                 lr_launches=lr_launches, lr_calls=cnt["lr_calls"],
                 symv_launches=cnt["symv"],
                 subproblem_launches=cnt["subproblem"],
+                fold_launches=cnt["fold"],
                 graph_replays=cnt["graph_replays"], rel_err=rel,
                 rel_err_plain=rel_plain, max_abs_err=err,
                 step_head_ms=hms, step_symv_ms=sms, refresh_ms=refresh_ms,
@@ -1911,7 +2051,7 @@ def phase_rollback(dev):
                 restored=[c["restored"] for c in checks], exact_fs=fs,
                 cg_its=list(m["cg_its"]), cg_replays=list(m["cg_replays"]),
                 host_reads=list(m["host_reads"]), launches=cnt["symv"],
-                kmatvec_calls=cnt["kmatvec_calls"])
+                kmatvec_calls=cnt["kmatvec_calls"], fold_launches=cnt["fold"])
 
 
 def _cg_replayed(tag, m, cnt):
@@ -2104,7 +2244,7 @@ def phase_dense(dev):
                subproblem_launches=cnt["subproblem"],
                eigh_launches=cnt["eigh"], secular_launches=cnt["secular"],
                crn_replays=cnt["crn_replays"], crn_blocks=cnt["crn_blocks"],
-               ls_reads=cnt["ls_reads"],
+               ls_reads=cnt["ls_reads"], fold_launches=cnt["fold"],
                reading_offset=_reading_offset("dense", float(loss.f_opt),
                                               f_star),
                reading_parts=_reading_parts(loss, A, b, f_star))
@@ -2198,6 +2338,7 @@ def phase_sparse(dev):
                 eager_equal=eager_same, cusparse_repeatable=cusparse_same,
                 host_reads=reads, graph_replays=cnt["krylov_replays"],
                 subproblem_launches=cnt["subproblem"],
+                fold_launches=cnt["fold"],
                 seconds={k: r["seconds"] for k, r in runs.items()})
 
 
@@ -2216,6 +2357,7 @@ def _reset_counts():
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.eigh import sym_eigh
+    from krylov_crn_tpu_torch.ops.math import fold
     from krylov_crn_tpu_torch.ops.subproblem import (
         eig_secular,
         tridiag_secular,
@@ -2233,7 +2375,7 @@ def _reset_counts():
     symv.launches = k_matvec.cuda_calls = _lr_matvec.cuda_calls = 0
     matvec.launches = dense_matvec.cuda_calls = 0
     matvec.shape_launches.clear()
-    tridiag_secular.launches = 0
+    tridiag_secular.launches = fold.launches = 0
     sym_eigh.launches = eig_secular.launches = read_resolved.count = 0
     for step in (crn_step_full, sscn_step):
         step.graph_captures = step.graph_replays = step.block_replays = 0
@@ -2247,6 +2389,7 @@ def _counts():
     from krylov_crn_tpu_torch.ops.matvec import matvec
     from krylov_crn_tpu_torch.ops.spmv import dense_matvec
     from krylov_crn_tpu_torch.ops.eigh import sym_eigh
+    from krylov_crn_tpu_torch.ops.math import fold
     from krylov_crn_tpu_torch.ops.subproblem import (
         eig_secular,
         tridiag_secular,
@@ -2274,7 +2417,7 @@ def _counts():
                 matvec=matvec.launches, dense_calls=dense_matvec.cuda_calls,
                 matvec_shapes={f"{n}x{m}_{dt}": k for (n, m, dt), k
                                in matvec.shape_launches.items()},
-                subproblem=tridiag_secular.launches,
+                subproblem=tridiag_secular.launches, fold=fold.launches,
                 graph_captures=gram_krylov_step.graph_captures,
                 graph_replays=gram_krylov_step.graph_replays,
                 krylov_captures=krylov_step.graph_captures,
@@ -2410,7 +2553,8 @@ def phase_cli_gram(f_star):
                 launches=cnt["symv"], kmatvec_calls=cnt["kmatvec_calls"],
                 graph_replays=cnt["graph_replays"],
                 subproblem_launches=cnt["subproblem"],
-                eigh_launches=cnt["eigh"], secular_launches=cnt["secular"])
+                eigh_launches=cnt["eigh"], secular_launches=cnt["secular"],
+                fold_launches=cnt["fold"])
 
 
 def phase_sscn(dev):
@@ -2469,7 +2613,8 @@ def phase_sscn(dev):
                 seconds={k: r["seconds"] for k, r in runs.items()},
                 solver_it={k: r["solver_it"] for k, r in runs.items()},
                 eigh_launches=cnt["eigh"], secular_launches=cnt["secular"],
-                sscn_replays=cnt["sscn_replays"], ls_reads=cnt["ls_reads"])
+                sscn_replays=cnt["sscn_replays"], ls_reads=cnt["ls_reads"],
+                fold_launches=cnt["fold"])
 
 
 def phase_cli_dense():
@@ -2523,7 +2668,8 @@ def phase_cli_dense():
                 matvec_shapes=cnt["matvec_shapes"],
                 graph_replays=cnt["krylov_replays"],
                 subproblem_launches=cnt["subproblem"],
-                eigh_launches=cnt["eigh"], secular_launches=cnt["secular"])
+                eigh_launches=cnt["eigh"], secular_launches=cnt["secular"],
+                fold_launches=cnt["fold"])
 
 
 def phase_skew(dev):
@@ -2709,6 +2855,7 @@ def phase_figure2(news20_alg):
                          subproblem_launches=cnt["subproblem"],
                          eigh_launches=cnt["eigh"],
                          secular_launches=cnt["secular"],
+                         fold_launches=cnt["fold"],
                          ts={a: c["ts"][-1] for a, c in curves.items()})
 
         # ---- news20-like: GramKrylov m=10 (SYMV) and SSCN m=1000
@@ -2761,7 +2908,8 @@ def phase_figure2(news20_alg):
                          graph_replays=cnt["graph_replays"],
                          subproblem_launches=cnt["subproblem"],
                          eigh_launches=scnt["eigh"],
-                         secular_launches=scnt["secular"])
+                         secular_launches=scnt["secular"],
+                         fold_launches=cnt["fold"] + scnt["fold"])
     return out
 
 
@@ -3225,7 +3373,9 @@ def main(argv=None):
     card = phase_device()
     dev = torch.device("cuda", 0)
     record = {"card": card, "build_s": phase_build(),
-              "kernel": phase_kernel(dev)}
+              "fold": phase_fold(dev)}
+    _plain_folds_refuse_the_card()
+    record["kernel"] = phase_kernel(dev)
     alg, record["main"] = phase_main(dev)
     record["fused"] = phase_fused(dev, alg)
     record["dspace_fused"] = phase_dspace_fused(dev, alg)
@@ -3274,6 +3424,7 @@ def main(argv=None):
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {record['seconds']:.1f} s")
     kk, mv, fig = record["kernel_on_K"], record["matvec"], record["figure2"]
+    fold = record["fold"]["times"]["dot2 21x20480"]
     eig, sec = record["eigh"]["n"][300], record["eigh"]["secular"][300]
     ls_runs = (record["dense"], record["cli_gram"], record["sscn"],
                record["cli_dense"], fig["w8a-like"], fig["news20-like"])
@@ -3381,7 +3532,24 @@ def main(argv=None):
                            record["eigh"]["secular"].values()),
         "ms": sec["ms"],
         "plain_ms": sec["plain_ms"], "bound_ms": sec["bound_ms"],
-        "bound_by": sec["bound_by"], "library_ms": None}]}
+        "bound_by": sec["bound_by"], "library_ms": None}, {
+        # not a TPU kernel's counterpart: the JAX package's folds are XLA
+        # fusions; launched by the compensated folds of the main-path runs
+        # (counters zeroed before each); timed at the Gram candidates'
+        # (21, 20480) dot2; max_abs_err the largest difference from its
+        # plain version over phase fold's cases
+        "name": "fold", "route": "cuda",
+        "source": "krylov_crn_tpu_torch/csrc/fold.cu",
+        "replaces": "krylov_crn_tpu/ops/math.py:sum2",
+        "launches": sum(r["fold_launches"] for r in (
+            record["main"], record["news20"], record["rollback"],
+            record["dense"], record["sparse"], record["cli_gram"],
+            record["sscn"], record["cli_dense"], fig["w8a-like"],
+            fig["news20-like"], *record["bf16_head"].values())),
+        "max_abs_err": record["fold"]["max_abs_err"],
+        "ms": fold["ms"], "plain_ms": fold["plain_ms"],
+        "bound_ms": fold["bound_ms"], "bound_by": fold["bound_by"],
+        "library_ms": fold["library_ms"]}]}
     for rec in kernels["kernels"]:
         if rec["launches"] <= 0:
             raise RuntimeError(f"{rec['name']}: no launch on its path")

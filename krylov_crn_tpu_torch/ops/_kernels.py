@@ -37,13 +37,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # spills (kept in last_build_log)
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
-# flags of one kernel on top of those: csrc/subproblem.cu and csrc/eigh.cu
-# are emulated bit for bit on the CPU (ops/subproblem.py, ops/eigh.py), so
-# every operation there rounds on its own (no fused multiply-add) and
-# divides and roots to nearest
+# flags of one kernel on top of those: csrc/subproblem.cu, csrc/eigh.cu and
+# csrc/fold.cu are emulated bit for bit on the CPU (ops/subproblem.py,
+# ops/eigh.py, ops/math.py), so every operation there rounds on its own
+# (no fused multiply-add, which would also break the folds' error-free
+# transforms) and divides and roots to nearest
 _EXACT = ["--fmad=false", "--prec-div=true", "--prec-sqrt=true",
           "--ftz=false"]
-KERNEL_FLAGS = {"subproblem": _EXACT, "eigh": _EXACT}
+KERNEL_FLAGS = {"subproblem": _EXACT, "eigh": _EXACT, "fold": _EXACT}
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}

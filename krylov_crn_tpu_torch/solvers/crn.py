@@ -47,6 +47,7 @@ from krylov_crn_tpu_torch.models.logistic import (
     value_args,
 )
 from krylov_crn_tpu_torch.ops.math import (
+    fold,
     over_n,
     ls_accept,
     pair_diff,
@@ -291,7 +292,7 @@ crn_step_full.block_replays = 0
 # the step's kernels, by their Python counters (utils/graphs)
 _COUNTERS = ((matvec, "launches"), (matvec, "shape_launches"),
              (dense_matvec, "cuda_calls"), (sym_eigh, "launches"),
-             (eig_secular, "launches"))
+             (eig_secular, "launches"), (fold, "launches"))
 
 
 class SearchGraphs(StepGraphs):

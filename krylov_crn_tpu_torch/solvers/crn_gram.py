@@ -46,7 +46,13 @@ from krylov_crn_tpu_torch.ops.gram import (
     rep_axpy,
     rep_dot,
 )
-from krylov_crn_tpu_torch.ops.math import over_n, reg_clamp, sigmoid, two_sum
+from krylov_crn_tpu_torch.ops.math import (
+    fold,
+    over_n,
+    reg_clamp,
+    sigmoid,
+    two_sum,
+)
 from krylov_crn_tpu_torch.ops.symv import symv
 from krylov_crn_tpu_torch.solvers.base import Optimizer
 from krylov_crn_tpu_torch.solvers.krylov_gram import (
@@ -210,7 +216,8 @@ class _CGGraphs(StepGraphs):
 
     def __init__(self, device):
         super().__init__(device, ((symv, "launches"),
-                                  (k_matvec, "cuda_calls")),
+                                  (k_matvec, "cuda_calls"),
+                                  (fold, "launches")),
                          (cg_rep, "graph_captures"),
                          (cg_rep, "block_replays"))
         self.gd = None

@@ -56,6 +56,7 @@ from krylov_crn_tpu_torch.models.logistic import (
 )
 from krylov_crn_tpu_torch.ops.lanczos import lanczos
 from krylov_crn_tpu_torch.ops.math import (
+    fold,
     over_n,
     ls_accept,
     pair_diff,
@@ -212,7 +213,8 @@ krylov_step.graph_replays = 0
 
 # the step's kernels, by their Python counters (utils/graphs)
 _COUNTERS = ((matvec, "launches"), (matvec, "shape_launches"),
-             (dense_matvec, "cuda_calls"), (tridiag_secular, "launches"))
+             (dense_matvec, "cuda_calls"), (tridiag_secular, "launches"),
+             (fold, "launches"))
 # what a step's span counts: the dense branch's products
 _STEP_COUNTS = ((matvec, "launches"),)
 

@@ -70,6 +70,7 @@ from krylov_crn_tpu_torch.ops.math import (
     accum_sum_pair,
     over_n,
     dot2,
+    fold,
     logsig,
     pair_diff,
     reg_clamp,
@@ -418,7 +419,10 @@ _REP_ROWS = ("gamma", "zeta")
 # the captured step launched, and adds what its capture counted
 _COUNTERS = ((symv, "launches"), (k_matvec, "cuda_calls"),
              (_lr_matvec, "cuda_calls"), (matvec, "launches"),
-             (matvec, "shape_launches"), (tridiag_secular, "launches"))
+             (matvec, "shape_launches"), (tridiag_secular, "launches"),
+             (fold, "launches"))
+# what a chunk's replays count (``gram.replay``): the folds and the steps
+_REPLAY_COUNTS = ((fold, "launches"), (gram_krylov_step, "graph_replays"))
 
 
 def _rows(state: GramKrylovState, stack_reps: bool, cap: int, device):
@@ -520,7 +524,7 @@ class _StepGraphs(StepGraphs):
     def run(self, entry, state: GramKrylovState, k: int, stack_reps: bool):
         """k replays of ``entry`` from ``state``: the final state and the
         chunk's stacks, as ``gram_krylov_multistep`` returns them."""
-        with span("gram.replay"):
+        with span("gram.replay", counts=_REPLAY_COUNTS):
             self.load(state)
             return _replay_chunk(self, entry, k, stack_reps)
 
@@ -615,7 +619,7 @@ class _GraphCache:
         the final state and the chunk's stacks, as
         ``gram_krylov_multistep`` returns them."""
         member, gd = entry
-        with span("gram.replay"):
+        with span("gram.replay", counts=_REPLAY_COUNTS):
             member.bind(gd)
             member.load(state)
             return _replay_chunk(member, member.entry, k, stack_reps)

@@ -3,10 +3,12 @@
 error-free transforms and folds keep their eager bits.
 
 Measured with torch 2.13 on the CPU: ``two_sum``, ``_split``,
-``_two_prod`` and ``sum2`` give the eager bits, and ``two_sum`` stays
-error-free; ``dot2`` keeps its hi but not its lo, because inductor sums
-the product errors (a plain sum) in another order. So the module's
-warning holds: compiled, the layer is not the eager layer bit for bit,
+``_two_prod``, ``sum2`` and ``dot2_plain`` give the eager bits, and
+``two_sum`` stays error-free. ``dot2`` keeps its hi; its lo adds a plain
+sum of the product errors, which inductor reordered while that sum was a
+``torch.sum`` (they are now added into lo row by row, as ``csrc/fold.cu``
+adds them). So the module's warning holds: compiled, the
+layer is the eager layer bit for bit only where the order is written out,
 and on a card a compiler that contracts a * b + c into an FMA would break
 the transforms themselves. The solvers never compile it."""
 
@@ -39,7 +41,8 @@ def _compiled(fn, *args):
     return out if isinstance(out, tuple) else (out,)
 
 
-@pytest.mark.parametrize("name", ["two_sum", "_split", "_two_prod", "sum2"])
+@pytest.mark.parametrize("name", ["two_sum", "_split", "_two_prod", "sum2",
+                                  "dot2_plain"])
 def test_compiled_transform_keeps_eager_bits(operands, name):
     x, y = operands
     fn = getattr(tm, name)
@@ -55,7 +58,7 @@ def test_compiled_transform_keeps_eager_bits(operands, name):
 
 def test_compiled_dot2_keeps_hi_and_reorders_lo(operands):
     """dot2's hi is the compensated fold's, bit for bit; its lo adds a
-    plain sum of the product errors, which the compiled version may sum in
+    plain sum of the product errors, which a compiled version may sum in
     another order: it stays within that sum's rounding, and the pair
     stays as close to the exact dot as the eager pair."""
     x, y = operands

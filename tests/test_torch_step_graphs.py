@@ -232,6 +232,45 @@ def _same_chunk(a, b):
         assert torch.equal(x, y)
 
 
+# a step's compensated folds at m = 10: Lanczos's 20 rep_dots, the
+# gradient's and the step's norms, the candidates' dot2 and sum2
+FOLDS_PER_STEP = 24
+
+
+def _replay_spans(graphs, solver, chunks=2):
+    """The ``gram.replay`` spans of ``chunks`` chunks of 8 of ``solver``
+    through ``graphs``."""
+    spans.clear()
+    spans.enable()
+    try:
+        _chunks(graphs, [solver], chunks)
+    finally:
+        spans.disable()
+    recs = [r for r in spans.records() if r.name == "gram.replay"]
+    spans.clear()
+    return recs
+
+
+def test_a_replay_span_counts_its_steps_folds(small_problem, cpu_graphs,
+                                             monkeypatch):
+    """A chunk's ``gram.replay`` span counts its replays and the fold
+    launches they add (what ``folds_per_step.gram`` reads): 24 a step. The
+    CPU stands in for the kernel by counting each plain fold as one."""
+    from krylov_crn_tpu_torch.ops import math as tm
+
+    lane_fold = tm._lane_fold
+
+    def counted(*args, **kw):
+        tm.fold.launches += 1
+        return lane_fold(*args, **kw)
+
+    monkeypatch.setattr(tm, "_lane_fold", counted)
+    recs = _replay_spans(cpu_graphs, _solver(small_problem))
+    assert [r.counts for r in recs] == [
+        {"fold.launches": 8 * FOLDS_PER_STEP,
+         "gram_krylov_step.graph_replays": 8}] * 2
+
+
 @pytest.mark.parametrize("order", ["back_to_back", "interleaved"])
 @pytest.mark.parametrize("solvers", [2, 3])
 def test_solvers_of_one_shape_share_one_graph(cpu_graphs, solvers, order):
@@ -506,6 +545,20 @@ def test_solvers_of_one_shape_replay_one_graph_on_card(cuda_device,
     for got, want in zip(mixed, single):
         for a, b in zip(got, want):
             _same_chunk(a, b)
+
+
+@pytest.mark.cuda
+def test_a_replay_span_counts_its_steps_folds_on_card(small_problem,
+                                                     cuda_device,
+                                                     empty_cache):
+    """On the card each of a step's folds is one launch of csrc/fold.cu,
+    which a replay adds from its capture: 24 a replayed step on the
+    chunk's ``gram.replay`` span."""
+    recs = _replay_spans(tk._graph_cache(cuda_device),
+                         _solver(small_problem, device=cuda_device))
+    assert [r.counts for r in recs] == [
+        {"fold.launches": 8 * FOLDS_PER_STEP,
+         "gram_krylov_step.graph_replays": 8}] * 2
 
 
 @pytest.mark.cuda
